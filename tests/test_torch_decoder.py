@@ -140,6 +140,21 @@ def test_flagship_shape_decodes():
     assert r.bits.dtype == torch.int8 and r.iterations.dtype == torch.int32
 
 
+@pytest.mark.slow
+def test_flagship_shape_matches_jax():
+    """BG1 Z=384, 12 iterations, near the waterfall: equal to the JAX layered
+    decoder (slow tier: the JAX side compiles for minutes on the CPU)."""
+    fields = dict(BG=1, A=8424, G=25272, Q_m=2)
+    pj, pt = JParams(**fields), TParams(**fields)
+    llr = np.concatenate([  # some converge in 7-8 sweeps, some never
+        _codeword_llrs(pt, 3, 1.05, seed=17)[0], _codeword_llrs(pt, 3, 1.1, seed=18)[0]])
+    rj = jax.jit(partial(j_layered.decode, pj, iterations=12))(jnp.asarray(llr))
+    rt = t_layered.decode(pt, torch.from_numpy(llr), iterations=12)
+    _assert_result_equal(rj, rt)
+    assert len(set(rt.iterations.tolist())) > 1  # a mix of sweep counts
+    assert rt.parity_ok.any() and not rt.parity_ok.all()
+
+
 def test_layer_order_and_argument_checks():
     pt = TParams(**Z20)
     nr = pt.num_rows
