@@ -3,7 +3,12 @@
 The system has no weights.  Its state is the code parameters and the HARQ
 buffers; these helpers move both between the two packages as plain Python /
 numpy values, so a HARQ process can start in one package and continue in the
-other.
+other.  The decoder has no parameters of its own, in either schedule and with
+any check rule or message type.  A ``ChainConfig`` needs no helper: apart
+from ``params`` its fields are plain values with the same names and defaults
+in both packages (``algorithm``, ``schedule``, ``message_dtype``,
+``alpha_schedule`` included), so it carries across field by field
+(tests/test_torch_chain_default.py).
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library under ``build/ldpc_3gpp_tpu_torch/``
 beside the package (a directory the repository ignores), named by a hash of
-the source and the flags, so an unchanged source is not rebuilt.  One
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+unchanged source is not rebuilt.  One
 ``nvcc`` process per source, all started together.  Nothing but the sources
 in this package and the installed CUDA toolkit is used.
 
@@ -65,8 +66,10 @@ def _source(name: str) -> str:
 def library_path(name: str) -> str:
     """Where the shared library of kernel ``name`` is (to be) built."""
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [_source(name), *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

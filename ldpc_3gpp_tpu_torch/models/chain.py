@@ -47,11 +47,11 @@ class ChainConfig:
     demod_method: str = "exact"
     early_termination: bool = True
     # BP decoder implementation (models.decoder.DECODE_BACKENDS).  'auto'
-    # runs the CUDA kernel for CUDA tensors and the plain layered decoder
-    # for CPU tensors — an implementation knob, not semantics: the kernel is
-    # bit-exact vs the plain decoder.
+    # runs the CUDA kernel of the schedule for CUDA tensors and its plain
+    # version for CPU tensors — an implementation knob, not semantics: the
+    # kernels are bit-exact vs the plain decoders.
     backend: str = "auto"
-    schedule: str = "flooding"  # BP schedule; only 'layered' is ported so far
+    schedule: str = "flooding"  # BP schedule: 'flooding' | 'layered'
     message_dtype: str = "float32"
     # iteration-dependent NMS normalization (alpha0, n0): alpha0 for the
     # first n0 sweeps, then `alpha`.  None = constant alpha.

@@ -13,12 +13,12 @@ Where the reference returns ``[]`` on failure (NRLDPCDecoder.m:337-339), this
 returns the decoded bits plus a per-codeword ``tb_ok`` flag — the natural
 batched equivalent.
 
-Everything runs on the device of the input LLRs.  Ported so far: the layered
-schedule with the min-sum family.  Still to port (ROADMAP.md): the flooding
-schedule, backend 'reference', sum-product, ``message_dtype='bfloat16'``.
-The defaults of ``algorithm`` and ``schedule`` are the JAX package's
-(sum-product, flooding) and raise ``NotImplementedError`` until those are
-ported: pass ``algorithm='min-sum', schedule='layered'``.
+Everything runs on the device of the input LLRs.  Both schedules (flooding,
+layered), the three check rules (sum-product, min-sum, offset-min-sum) and
+``message_dtype`` 'float32' / 'bfloat16' are ported; the defaults of
+``algorithm`` and ``schedule`` are the JAX package's (sum-product, flooding),
+the literal comm.LDPCDecoder semantics of the reference.  Still to port
+(ROADMAP.md): backend 'reference'.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import torch
 
 from ..ops import decoder_cuda
 from ..ops.crc import crc_check
+from ..ops.decoder_fast import decode as bp_decode_fast
 from ..ops.decoder_layered import decode as bp_decode_layered
 from ..ops.modulation import Q_M, demodulate_planes
 from ..ops.rate_match import accumulate_llrs, deinterleave
@@ -35,11 +36,12 @@ from ..spec.params import LDPCParams
 from ..utils.device import resolve_device
 
 # BP decoder implementations:
-#   'auto' — the CUDA kernel for CUDA tensors, the plain layered decoder for
-#            CPU tensors
-#   'cuda' — the CUDA kernel, or an error if the tensors are not on a GPU
-#   'fast' — the plain PyTorch layered decoder (ops/decoder_layered.py), on
-#            whatever device the tensors are
+#   'auto' — ops/decoder_cuda.decode: the CUDA kernel of the schedule for
+#            CUDA tensors, the kernel's plain version for CPU tensors
+#   'cuda' — the same, or an error if the tensors are not on a GPU
+#   'fast' — the plain PyTorch decoders on whatever device the tensors are:
+#            flooding (ops/decoder_fast.py) or layered
+#            (ops/decoder_layered.py); float32 messages only
 DECODE_BACKENDS = ("auto", "cuda", "fast")
 
 # Large finite stand-in for the reference's +inf filler LLRs
@@ -147,21 +149,29 @@ def split_rate_matched_symbols(
     return torch.stack(rows, dim=-2)
 
 
-def _kernel_engaged(backend: str, algorithm: str, params: LDPCParams,
-                    device: torch.device) -> bool:
-    """Will this (backend, algorithm, params, device) run the CUDA kernel?
+def _kernel_engaged(backend: str, algorithm: str, params: LDPCParams) -> bool:
+    """Will this (backend, algorithm, params) go through ``decoder_cuda``?
 
     The chain uses it to pick the kernel's fused ``channel_format='d'``
-    input exactly when the kernel will consume it.
+    input and ``output_format='sys'`` output exactly when the kernel (or,
+    for CPU tensors, its plain version) will consume them.
     """
     if backend == "cuda":
         return True
     return (
         backend == "auto"
-        and device.type == "cuda"
         and algorithm in decoder_cuda.ALGORITHMS
         and decoder_cuda.supports(params)
     )
+
+
+def _bp_decode_fast(params, llr, *, schedule, **kw):
+    """Backend 'fast': dispatch on ``schedule`` to the plain decoders."""
+    if schedule == "flooding":
+        return bp_decode_fast(params, llr, **kw)
+    if schedule == "layered":
+        return bp_decode_layered(params, llr, **kw)
+    raise ValueError(f"backend does not implement schedule {schedule!r}")
 
 
 def decode_transport_block(
@@ -215,9 +225,9 @@ def decode_transport_block_d(
     rate-matched stream (the simulation chain's fused symbol path,
     ``split_rate_matched_symbols``).  Semantics identical from d~ onward.
 
-    The device is that of ``d_tilde``: CUDA tensors go through the kernel
-    (backends 'auto' and 'cuda'), CPU tensors through the plain decoder;
-    backend 'cuda' raises for CPU tensors.
+    The device is that of ``d_tilde``: with backends 'auto' and 'cuda', CUDA
+    tensors go through the kernel of ``schedule`` and CPU tensors through its
+    plain version; backend 'cuda' raises for CPU tensors.
     """
     if backend not in DECODE_BACKENDS:
         if backend == "reference":
@@ -226,16 +236,6 @@ def decode_transport_block_d(
                 "ops/decoder.py)"
             )
         raise ValueError(f"unknown backend {backend!r}")
-    if schedule != "layered":
-        raise NotImplementedError(
-            f"schedule {schedule!r} is not ported yet (ROADMAP.md queue A: "
-            "ops/decoder_fast.py, queue B: V3)"
-        )
-    if message_dtype != "float32":
-        raise NotImplementedError(
-            f"message_dtype={message_dtype} is not ported yet (ROADMAP.md "
-            "queue B: V6)"
-        )
     dev = d_tilde.device
     if backend == "cuda" and dev.type != "cuda":
         raise RuntimeError("backend 'cuda' needs CUDA tensors")
@@ -258,17 +258,36 @@ def decode_transport_block_d(
 
     kw = dict(
         iterations=iterations, algorithm=algorithm, alpha=alpha, beta=beta,
-        early_termination=early_termination, alpha_schedule=alpha_schedule,
+        early_termination=early_termination, schedule=schedule,
     )
+    engaged = _kernel_engaged(backend, algorithm, params)
+    if alpha_schedule is not None:
+        # iteration-dependent NMS normalization: the kernels have it in both
+        # schedules, the plain decoders of backend 'fast' only in the
+        # layered one (flooding there is the literal reference semantics)
+        if not engaged and schedule != "layered":
+            raise ValueError(
+                "alpha_schedule requires the kernel backends or the plain "
+                "layered decoder (schedule='layered')"
+            )
+        kw["alpha_schedule"] = (float(alpha_schedule[0]), int(alpha_schedule[1]))
+    if message_dtype != "float32":
+        if backend not in ("cuda", "auto"):
+            raise ValueError(
+                f"message_dtype={message_dtype} is a knob of the kernels; "
+                f"backend {backend!r} is f32-only"
+            )
+        kw["message_dtype"] = message_dtype
+
     # Rebuild the full codeword LLRs: 2Z punctured zeros + d, fillers pinned
     # to +FILLER_LLR (known zero bits; NRLDPCDecoder.m:262-264).  When the
     # kernel is engaged it performs both steps itself while it loads
     # (channel_format='d') and emits only the K bits read below
-    # (output_format='sys').  (Kp >= 2Z guards the corner where fillers
-    # would reach into the punctured region — never seen for valid NR
-    # parameters, but the fused path synthesizes zeros there while the cw
-    # path pins FILLER.)
-    if _kernel_engaged(backend, algorithm, params, dev) and Kp >= 2 * Z:
+    # (output_format='sys'), in either schedule.  (Kp >= 2Z guards the corner
+    # where fillers would reach into the punctured region — never seen for
+    # valid NR parameters, but the fused path synthesizes zeros there while
+    # the cw path pins FILLER.)
+    if engaged and Kp >= 2 * Z:
         res = decoder_cuda.decode(
             params, d_tilde, channel_format="d", output_format="sys", **kw
         )
@@ -277,8 +296,8 @@ def decode_transport_block_d(
         dec_llr = torch.cat([zeros2z, d_tilde], dim=-1)
         if Kp < K:
             dec_llr[..., Kp:K] = FILLER_LLR
-        if backend == "fast" or dev.type != "cuda":
-            res = bp_decode_layered(params, dec_llr, **kw)
+        if backend == "fast":
+            res = _bp_decode_fast(params, dec_llr, **kw)
         else:
             res = decoder_cuda.decode(params, dec_llr, **kw)
     c_hat = res.bits  # (..., C, num_cols*Z), or (..., C, K) from the fused path

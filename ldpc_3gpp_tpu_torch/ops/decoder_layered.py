@@ -16,7 +16,8 @@ at which it passed; the final permitted sweep (it == iterations) only
 checks, never updates (max ``iterations`` update sweeps, matching
 comm.LDPCDecoder counting — NRLDPCDecoder.m:120).
 
-Still to port (ROADMAP.md): the sum-product check rule.
+All three check rules (sum-product, min-sum, offset-min-sum) come from
+``decoder_fast._check_messages``, shared with the flooding schedule.
 """
 from __future__ import annotations
 
@@ -25,9 +26,15 @@ import torch
 
 from ..spec.params import LDPCParams
 from .decoder import DecodeResult
-from .decoder_fast import _row_plan
-
-ALGORITHMS = ("min-sum", "offset-min-sum")
+from .decoder_fast import (
+    ALGORITHMS,
+    _alpha_at,
+    _check_messages,
+    _row_plan,
+    _syndrome_ok,
+    require_algorithm,
+    resolve_message_dtype,
+)
 
 
 def _resolve_layer_order(params: LDPCParams, layer_order):
@@ -50,60 +57,6 @@ def _resolve_layer_order(params: LDPCParams, layer_order):
     return order
 
 
-def _sign(x):
-    # 0 maps to +1: the rule the kernel's sign-bit arithmetic follows, since
-    # no -0.0 arises (channel zeros are +0.0).
-    return torch.where(x < 0, -1.0, 1.0)
-
-
-def require_algorithm(algorithm: str) -> None:
-    """Raise unless ``algorithm`` is a check rule the port has."""
-    if algorithm == "sum-product":
-        raise NotImplementedError(
-            "layered sum-product is not ported yet (ROADMAP.md queue B: V2)"
-        )
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"unsupported algorithm {algorithm}")
-
-
-def _check_messages(v, algorithm, alpha, beta):
-    """Extrinsic messages for one check row (mirrors the kernel's rule)."""
-    m1 = v[0].abs()
-    m2 = torch.full_like(m1, float("inf"))
-    idx = torch.zeros_like(m1, dtype=torch.int32)
-    sprod = _sign(v[0])
-    for i in range(1, len(v)):
-        av = v[i].abs()
-        better = av < m1
-        m2 = torch.where(better, m1, torch.minimum(m2, av))
-        m1 = torch.where(better, av, m1)
-        idx = torch.where(better, i, idx)
-        sprod = sprod * _sign(v[i])
-    if algorithm == "min-sum":
-        m1 = alpha * m1
-        m2 = alpha * m2
-    else:
-        m1 = torch.clamp_min(m1 - beta, 0.0)
-        m2 = torch.clamp_min(m2 - beta, 0.0)
-    return [
-        sprod * _sign(ve) * torch.where(idx == i, m2, m1)
-        for i, ve in enumerate(v)
-    ]
-
-
-def _syndrome_ok(totals, by_row, row_seq):
-    """(...,) bool: every check of every row sees even sign parity."""
-    ok = None
-    for r in row_seq:
-        par = None
-        for (_, c, s) in by_row[r]:
-            bit = torch.roll(totals[c], -s, dims=-1) < 0
-            par = bit if par is None else par ^ bit
-        row_ok = ~par.any(dim=-1)
-        ok = row_ok if ok is None else ok & row_ok
-    return ok
-
-
 @torch.no_grad()
 def decode(
     params: LDPCParams,
@@ -115,6 +68,7 @@ def decode(
     early_termination: bool = True,
     layer_order="reversed",
     alpha_schedule=None,
+    message_dtype: str = "float32",
 ) -> DecodeResult:
     """Layered BP decode of (..., num_cols*Z) LLRs on the device of ``llr``.
 
@@ -124,19 +78,18 @@ def decode(
     ``alpha_schedule=(alpha0, n0)`` (min-sum only): normalization alpha0
     for the first n0 update sweeps, the standard ``alpha`` after.
 
+    ``message_dtype='bfloat16'`` (min-sum family only) follows the CUDA
+    kernel: only the stored message is rounded; the totals take the
+    unrounded float32 message and the next sweep subtracts the rounded one.
+
     Returns int8 bits (..., num_cols*Z), bool parity_ok and int32 iterations.
     """
     if alpha_schedule is not None and algorithm != "min-sum":
         raise ValueError("alpha_schedule applies to min-sum only")
     require_algorithm(algorithm)
-    # alpha and beta meet the messages as f32 values, rounded once here.
-    alpha, beta = float(np.float32(alpha)), float(np.float32(beta))
-
-    def _alpha_at(it):
-        if alpha_schedule is None:
-            return alpha
-        a0, n0 = alpha_schedule
-        return float(np.float32(a0)) if it < n0 else alpha
+    dtype = resolve_message_dtype(message_dtype, algorithm)
+    # beta (like alpha) meets the messages as an f32 value, rounded once.
+    beta = float(np.float32(beta))
 
     row_seq = _resolve_layer_order(params, layer_order)
     Z = params.Z_c
@@ -150,7 +103,7 @@ def decode(
     totals = [blocks[..., c, :] for c in range(nc)]
     by_row, _ = _row_plan(params)
     E = len(params.edges[0])
-    c2v = [torch.zeros(batch_shape + (Z,), dtype=torch.float32, device=dev)
+    c2v = [torch.zeros(batch_shape + (Z,), dtype=dtype, device=dev)
            for _ in range(E)]
 
     def update_sweep(it, keep):
@@ -159,7 +112,7 @@ def decode(
         Returns the (...,) flags "every row's on-the-fly parity was even".
         """
         sweep_ok = None
-        a_t = _alpha_at(it)
+        a_t = _alpha_at(alpha, alpha_schedule, it)
         for r in row_seq:
             edges = by_row[r]
             t = [torch.roll(totals[c], -s, dims=-1) for (_, c, s) in edges]
@@ -170,14 +123,15 @@ def decode(
                     par = bit if par is None else par ^ bit
                 row_ok = ~par.any(dim=-1)
                 sweep_ok = row_ok if sweep_ok is None else sweep_ok & row_ok
-            v = [te - c2v[e] for te, (e, _, _) in zip(t, edges)]
+            v = [te - c2v[e].to(torch.float32)
+                 for te, (e, _, _) in zip(t, edges)]
             nm = _check_messages(v, algorithm, a_t, beta)
             for i, (ve, (e, c, s)) in enumerate(zip(v, edges)):
                 if keep is None:
-                    c2v[e] = nm[i]
+                    c2v[e] = nm[i].to(dtype)
                     tn = ve + nm[i]
                 else:
-                    c2v[e] = torch.where(keep, c2v[e], nm[i])
+                    c2v[e] = torch.where(keep, c2v[e], nm[i].to(dtype))
                     tn = torch.where(keep, t[i], ve + nm[i])
                 totals[c] = torch.roll(tn, s, dims=-1)
         return sweep_ok

@@ -37,39 +37,40 @@ def _eq(jax_out, torch_out):
     np.testing.assert_array_equal(j, t)
 
 
-def _inputs():
-    rng = np.random.default_rng(42)
-    a = rng.integers(0, 2, (BATCH, FIELDS["A"])).astype(np.int8)
-    S = FIELDS["G"] // FIELDS["Q_m"]
-    std = np.sqrt(NOISE_VAR / 2.0)
+def make_inputs(fields, rv_sequence, batch, noise_var, seed=42):
+    """Info bits and per-stage complex noise from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2, (batch, fields["A"])).astype(np.int8)
+    S = fields["G"] // fields["Q_m"]
+    std = np.sqrt(noise_var / 2.0)
     noise = [
-        ((rng.standard_normal((BATCH, S)) + 1j * rng.standard_normal((BATCH, S)))
+        ((rng.standard_normal((batch, S)) + 1j * rng.standard_normal((batch, S)))
          * std).astype(np.complex64)
-        for _ in RV_SEQUENCE
+        for _ in rv_sequence
     ]
     return a, noise
 
 
-@pytest.fixture(scope="module")
-def jax_run():
+def run_jax_chain(fields, rv_sequence, iterations, noise_var, a, noise, decode_kw):
     """The JAX package's chain, composed from its public functions as
     models/chain.py::simulate_batch composes them, stage by stage."""
-    a, noise = _inputs()
-    p0 = JParams(**FIELDS)
-    nv = jnp.asarray(NOISE_VAR)
-    state = j_dec.init_harq_state(p0, (BATCH,))
+    batch = a.shape[0]
+    p0 = JParams(**fields)
+    nv = jnp.asarray(noise_var)
+    state = j_dec.init_harq_state(p0, (batch,))
     stages = []
-    success = np.zeros(BATCH, bool)
+    success = np.zeros(batch, bool)
     a_hat = np.zeros_like(a)
     total_iters = 0
-    hist = np.zeros(ITERATIONS + 1, np.int64)
-    for stage, rv in enumerate(RV_SEQUENCE):
+    hist = np.zeros(iterations + 1, np.int64)
+    for stage, rv in enumerate(rv_sequence):
         p = p0.with_tx(rv_id=rv)
         tx = j_enc.encode_to_symbols(p, jnp.asarray(a), "QPSK")
         rx = tx + jnp.asarray(noise[stage])
         d_tilde = j_dec.split_rate_matched_symbols(p, rx, "QPSK", nv, "exact")
         res = jax.jit(partial(
-            j_dec.decode_transport_block_d, p, backend="fast", **DECODE_KW
+            j_dec.decode_transport_block_d, p, backend="fast",
+            iterations=iterations, **decode_kw
         ))(d_tilde, state)
         stages.append(dict(
             state_in=tuple(np.asarray(x) for x in state),
@@ -85,13 +86,36 @@ def jax_run():
         active = ~success
         success = success | tb_ok
         total_iters += int((iters * active[:, None]).sum())
-        hist += np.bincount(iters[active].reshape(-1), minlength=ITERATIONS + 1)
+        hist += np.bincount(iters[active].reshape(-1), minlength=iterations + 1)
     ok = success & (a_hat == a).all(-1)
     return dict(
         stages=stages, tb_ok=ok, block_errors=int((~ok).sum()),
         bit_errors=int(np.where(success[:, None], a_hat != a, True).sum()),
         iterations=total_iters, hist=hist,
     )
+
+
+def assert_batch_result_equals(r, jax_run, batch):
+    """Every counter and flag of a ``BatchResult`` equals the JAX run's."""
+    assert int(r.blocks) == batch
+    assert int(r.block_errors) == jax_run["block_errors"]
+    assert int(r.bit_errors) == jax_run["bit_errors"]
+    assert int(r.iterations) == jax_run["iterations"]
+    np.testing.assert_array_equal(r.iteration_hist.numpy(), jax_run["hist"])
+    np.testing.assert_array_equal(r.tb_ok.numpy(), jax_run["tb_ok"])
+    assert r.iteration_hist.dtype == torch.int32 and r.blocks.dtype == torch.int32
+
+
+def _inputs():
+    return make_inputs(FIELDS, RV_SEQUENCE, BATCH, NOISE_VAR)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    a, noise = _inputs()
+    layered_min_sum = {k: v for k, v in DECODE_KW.items() if k != "iterations"}
+    return run_jax_chain(
+        FIELDS, RV_SEQUENCE, ITERATIONS, NOISE_VAR, a, noise, layered_min_sum)
 
 
 def _torch_cfg(**kw):
@@ -147,13 +171,7 @@ def test_simulate_given_matches_jax(jax_run):
     r = t_chain.simulate_given(
         _torch_cfg(), torch.from_numpy(a), [torch.from_numpy(n) for n in noise],
         torch.tensor(NOISE_VAR))
-    assert int(r.blocks) == BATCH
-    assert int(r.block_errors) == jax_run["block_errors"]
-    assert int(r.bit_errors) == jax_run["bit_errors"]
-    assert int(r.iterations) == jax_run["iterations"]
-    np.testing.assert_array_equal(r.iteration_hist.numpy(), jax_run["hist"])
-    np.testing.assert_array_equal(r.tb_ok.numpy(), jax_run["tb_ok"])
-    assert r.iteration_hist.dtype == torch.int32 and r.blocks.dtype == torch.int32
+    assert_batch_result_equals(r, jax_run, BATCH)
     # the point of rv (0, 2): some blocks fail stage 0 and decode at stage 1
     first_ok = jax_run["stages"][0]["res"]["tb_ok"]
     assert 0 < first_ok.sum() < BATCH and jax_run["tb_ok"].sum() > first_ok.sum()
@@ -193,19 +211,41 @@ def test_decode_transport_block_from_rate_matched_llrs():
 
 
 def test_unported_decoder_options_raise():
+    """What used to raise as unported now runs (the defaults, flooding,
+    sum-product, bfloat16 messages) or raises what the JAX package raises;
+    backend 'reference' is still to port."""
     pt = TParams(**FIELDS)
-    d = torch.zeros(2, pt.C, pt.N)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dec.decode_transport_block_d(pt, d)  # defaults: sum-product, flooding
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dec.decode_transport_block_d(pt, d, algorithm="min-sum", schedule="flooding")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dec.decode_transport_block_d(
-            pt, d, algorithm="sum-product", schedule="layered")
+    a, _ = _inputs()
+    g = t_enc.encode_transport_block(pt, torch.from_numpy(a[:2]))
+    d = t_dec.split_rate_matched(pt, 4.0 * (1.0 - 2.0 * g.to(torch.float32)))
+    want = torch.from_numpy(a[:2])
+    for kw in (
+        dict(),  # defaults: sum-product, flooding
+        dict(algorithm="min-sum", schedule="flooding"),
+        dict(algorithm="sum-product", schedule="layered"),
+        dict(message_dtype="bfloat16", backend="auto", **DECODE_KW),
+        dict(message_dtype="bfloat16", backend="auto", iterations=ITERATIONS,
+             algorithm="offset-min-sum", schedule="flooding"),
+    ):
+        res = t_dec.decode_transport_block_d(pt, d, **kw)
+        assert res.tb_ok.all() and torch.equal(res.a_hat, want), kw
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_dec.decode_transport_block_d(pt, d, backend="reference", **DECODE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dec.decode_transport_block_d(pt, d, message_dtype="bfloat16", **DECODE_KW)
+    with pytest.raises(ValueError, match="f32-only"):  # as the JAX package
+        t_dec.decode_transport_block_d(
+            pt, d, message_dtype="bfloat16", backend="fast", **DECODE_KW)
+    with pytest.raises(ValueError, match="float32"):
+        t_dec.decode_transport_block_d(
+            pt, d, message_dtype="bfloat16", backend="auto")  # sum-product
+    with pytest.raises(ValueError, match="min-sum only"):
+        t_dec.decode_transport_block_d(
+            pt, d, backend="auto", alpha_schedule=(0.65, 2))  # sum-product
+    with pytest.raises(ValueError, match="alpha_schedule"):
+        t_dec.decode_transport_block_d(
+            pt, d, backend="fast", algorithm="min-sum", schedule="flooding",
+            alpha_schedule=(0.65, 2))
+    with pytest.raises(ValueError, match="schedule"):
+        t_dec.decode_transport_block_d(pt, d, backend="fast", schedule="zigzag")
     with pytest.raises(RuntimeError, match="CUDA"):
         t_dec.decode_transport_block_d(pt, d, backend="cuda", **DECODE_KW)
     with pytest.raises(ValueError):

@@ -1,7 +1,8 @@
 """The port's layered decoder against the JAX package on the same numpy LLRs.
 
-Min-sum family: bits, ``parity_ok`` and ``iterations`` are held equal
-(tolerance 0).  The JAX layered decoder compiles slowly on the CPU, so the
+Bits, ``parity_ok`` and ``iterations`` are held equal (tolerance 0); the
+flooding schedule, sum-product and bfloat16 messages are in
+``test_torch_flooding.py``.  The JAX layered decoder compiles slowly on the CPU, so the
 JAX-side cases are few and small; each combines several of the options.  On
 the CPU ``decoder_cuda.decode`` runs its plain version; the CUDA kernel
 itself is compared with that plain version on the card by ``chip_smoke.py``
@@ -163,8 +164,19 @@ def test_layer_order_and_argument_checks():
     with pytest.raises(ValueError):
         t_cuda._resolve_layer_order(pt, (0, 0, 1))
     llr = torch.zeros(2, pt.num_cols * pt.Z_c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cuda.decode(pt, llr, algorithm="sum-product")
+    for schedule in t_cuda.SCHEDULES:  # sum-product is ported: all-zero LLRs pass
+        r = t_cuda.decode(pt, llr, algorithm="sum-product", schedule=schedule)
+        assert r.parity_ok.all() and not r.bits.any() and not r.iterations.any()
+    assert t_cuda.ALGORITHMS == j_pallas.ALGORITHMS == t_layered.ALGORITHMS
+    assert t_cuda.SCHEDULES == j_pallas.SCHEDULES
+    with pytest.raises(ValueError, match="float32"):  # as the JAX package
+        t_cuda.decode(pt, llr, algorithm="sum-product", message_dtype="bfloat16")
+    with pytest.raises(ValueError, match="message_dtype"):
+        t_cuda.decode(pt, llr, message_dtype="float16")
+    with pytest.raises(ValueError, match="schedule"):
+        t_cuda.decode(pt, llr, schedule="zigzag")
+    with pytest.raises(ValueError):
+        t_cuda.decode(pt, llr, algorithm="sum-product", alpha_schedule=(0.5, 1))
     with pytest.raises(ValueError):
         t_cuda.decode(pt, llr, algorithm="nonsense")
     with pytest.raises(ValueError):
@@ -195,15 +207,11 @@ def test_graph_plan_covers_every_edge_in_row_order():
     assert max_deg == max(np.bincount(rows))
 
 
-def test_ctypes_signature_matches_the_cuda_source():
-    """The wrapper's argtypes follow the C declaration in the .cu source."""
-    path = os.path.join(kernels_build.CSRC_DIR, t_cuda.KERNEL_NAME + ".cu")
-    with open(path) as f:
-        src = f.read()
-    decl = re.search(r'extern "C" int ldpc_layered_decode\((.*?)\)\s*{', src, re.S)
+def _c_argument_kinds(src, function):
+    """ctypes kinds of the arguments of ``extern "C" int function(...)``."""
+    decl = re.search(r'extern "C" int %s\((.*?)\)\s*{' % function, src, re.S)
     kinds = []
-    for arg in decl.group(1).split(","):
-        arg = arg.strip()
+    for arg in filter(None, (a.strip() for a in decl.group(1).split(","))):
         if "*" in arg:
             kinds.append(ctypes.c_void_p)
         elif arg.startswith("float"):
@@ -211,23 +219,89 @@ def test_ctypes_signature_matches_the_cuda_source():
         else:
             assert arg.startswith("int"), arg
             kinds.append(ctypes.c_int)
-    assert kinds == list(t_cuda.DECODE_ARGTYPES)
+    return kinds
+
+
+@pytest.mark.parametrize("schedule", ["layered", "flooding"])
+def test_ctypes_signature_matches_the_cuda_source(schedule):
+    """The wrapper's argtypes follow the C declaration in the .cu source."""
+    name = t_cuda.KERNEL_NAMES[schedule]
+    with open(os.path.join(kernels_build.CSRC_DIR, name + ".cu")) as f:
+        src = f.read()
+    assert _c_argument_kinds(src, name + "_decode") == list(t_cuda.DECODE_ARGTYPES)
+    assert _c_argument_kinds(src, name + "_shared_bytes") == [ctypes.c_int] * 4
+    for fn in ("max_degree", "max_z", "max_shared_bytes"):
+        assert _c_argument_kinds(src, f"{name}_{fn}") == []
+    if schedule == "flooding":
+        assert _c_argument_kinds(src, "ldpc_phi") == list(t_cuda.PHI_ARGTYPES)
+    # the rule codes are the header's
+    with open(os.path.join(kernels_build.CSRC_DIR, "ldpc_bp.cuh")) as f:
+        header = f.read()
+    for rule, code in t_cuda._RULE_CODES.items():
+        macro = "RULE_" + rule.upper().replace("-", "_")
+        assert re.search(r"#define %s %d\b" % (macro, code), header), rule
     assert "-fmad=false" in kernels_build.NVCC_FLAGS
     assert "--use_fast_math" not in kernels_build.NVCC_FLAGS
-    assert kernels_build.kernel_names() == [t_cuda.KERNEL_NAME]
+    assert kernels_build.kernel_names() == sorted(t_cuda.KERNEL_NAMES.values())
+    assert set(t_cuda.LAUNCHES) == set(t_cuda.KERNEL_NAMES.values())
     assert "arch=compute_90a,code=sm_90a" in kernels_build.NVCC_FLAGS
 
 
+def test_library_name_follows_source_and_shared_header(tmp_path, monkeypatch):
+    """A change to a kernel's source or to the shared header gives the
+    library another name, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    (csrc / "common.cuh").write_text("// header\n")
+    monkeypatch.setattr(kernels_build, "CSRC_DIR", str(csrc))
+    first = kernels_build.library_path("k")
+    assert first == kernels_build.library_path("k")
+    (csrc / "common.cuh").write_text("// header, edited\n")
+    second = kernels_build.library_path("k")
+    (csrc / "k.cu").write_text("// kernel, edited\n")
+    third = kernels_build.library_path("k")
+    assert len({first, second, third}) == 3
+
+
+CARD_CASES = {
+    "layered_min_sum": dict(),
+    "layered_sum_product": dict(algorithm="sum-product"),
+    "layered_bfloat16": dict(message_dtype="bfloat16"),
+    "flooding_sum_product": dict(schedule="flooding", algorithm="sum-product"),
+    "flooding_min_sum_alpha_schedule": dict(
+        schedule="flooding", alpha_schedule=(0.65, 2)),
+    "flooding_offset_budget": dict(
+        schedule="flooding", algorithm="offset-min-sum", early_termination=False),
+    "flooding_bfloat16": dict(schedule="flooding", message_dtype="bfloat16"),
+}
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    """The CUDA kernel equals its plain version (needs a GPU and nvcc)."""
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_kernel_matches_plain_on_the_card(name):
+    """Each CUDA kernel instantiation equals its plain version (needs a GPU
+    and nvcc).  Tolerance 0, sum-product included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no interpret mode")
+    kw = CARD_CASES[name]
     pt = TParams(**Z52)
     llr = torch.from_numpy(_mixed_llrs(pt, seed=3)).cuda()
-    before = t_cuda.LAUNCHES
-    got = t_cuda.decode(pt, llr, iterations=8)
-    assert t_cuda.LAUNCHES == before + 1
-    want = t_cuda.decode_plain(pt, llr, iterations=8)
+    kernel = t_cuda.KERNEL_NAMES[kw.get("schedule", "layered")]
+    before = dict(t_cuda.LAUNCHES)
+    got = t_cuda.decode(pt, llr, iterations=8, **kw)
+    assert t_cuda.LAUNCHES[kernel] == before[kernel] + 1
+    assert sum(t_cuda.LAUNCHES.values()) == sum(before.values()) + 1
+    want = t_cuda.decode_plain(pt, llr, iterations=8, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_phi_on_the_card_matches_plain():
+    """The kernels' phi device function equals the plain ``_phi`` bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no interpret mode")
+    x = torch.logspace(-9.5, 1.7, 100_000, dtype=torch.float32).cuda()
+    got, want = t_cuda.phi_on_device(x), t_decoder._phi(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -79,7 +79,8 @@ def test_sources_name_no_jax_import():
 
 def test_spec_data_and_kernel_source_ship_with_the_package():
     assert os.path.exists(os.path.join(PKG, "spec", "base_graphs.npz"))
-    assert os.path.exists(os.path.join(PKG, "csrc", "ldpc_layered.cu"))
+    for name in ("ldpc_layered.cu", "ldpc_flooding.cu", "ldpc_bp.cuh"):
+        assert os.path.exists(os.path.join(PKG, "csrc", name)), name
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu():
@@ -90,6 +91,9 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
         params=p, iterations=4, algorithm="min-sum", schedule="layered")
     with pytest.raises(RuntimeError, match="CUDA"):
         t_chain.simulate_batch(cfg, make_generator(0, "cpu"), 1.0, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):  # the default decoder too
+        t_chain.simulate_batch(
+            t_chain.ChainConfig(params=p), make_generator(0, "cpu"), 1.0, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_generator(0)
     with pytest.raises(RuntimeError, match="CUDA"):
