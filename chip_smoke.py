@@ -17,10 +17,19 @@ kernels with the launch counts set to 0 before each and read after:
   semantics) at BG2 A=3842 G=11526 QPSK, 8 iterations, two code blocks;
 - P3: BG2 A=2048 G=6144, sum-product, layered and flooding, 8 iterations;
 - P4: P1 with ``message_dtype='bfloat16'``;
-- one step each for the variants that no path above runs.
+- one step each for the variants that no path above runs;
+- P5: the sweeps, ``snr_vs_a`` with the reference's defaults (BG1
+  R=1/3 QPSK, sum-product flooding, 50 iterations, A = 1000..8000) and
+  ``bler_vs_snr`` at BG2 A=100 R=1/2 (min-sum flooding, Z=20), the latter
+  once more with an explicit four codewords per block (same points required),
+  ``MonteCarlo`` with 64QAM, and every lifting size of both base graphs with
+  16QAM/64QAM.
 
-It gates block error rates and mean iteration counts against the measured
-goldens, and times every kernel variant and the steps with CUDA events.
+It holds the packed kernels (several small-Z codewords per block) equal to the
+one-codeword kernels and the plain versions, the op-rate microbenchmark equal
+to its plain version, gates block error rates, required Es/N0 and mean
+iteration counts against the measured goldens, and times every kernel variant
+and the steps with CUDA events.
 
 Every phase raises on failure (non-zero exit, no ``ok`` line).  One JSON
 object per line; the line before the last holds ``{"kernels": [...]}`` and
@@ -29,11 +38,13 @@ nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,7 +74,7 @@ OPS_PER_EDGE_LANE_SUM_PRODUCT = 2 * OPS_PER_PHI + 13
 FLAGSHIP = dict(BG=1, A=8424, G=25272, Q_m=2)
 ITERATIONS = 12
 MAIN_BATCH = 1024
-MAIN_STEPS = 4
+MAIN_STEPS = 2
 MAIN_ESN0_DB = 1.0
 
 # P2: the reference's headline configuration (plot_BLER_vs_SNR.m defaults;
@@ -81,7 +92,30 @@ P3_ITERATION_TOLERANCE = 0.15  # on the mean iterations per block
 
 LAYERED_SOURCE = "ldpc_3gpp_tpu_torch/csrc/ldpc_layered.cu"
 FLOODING_SOURCE = "ldpc_3gpp_tpu_torch/csrc/ldpc_flooding.cu"
+OP_RATES_SOURCE = "ldpc_3gpp_tpu_torch/csrc/op_rates.cu"
 TPU_KERNEL = "ldpc_3gpp_tpu/ops/decoder_pallas.py:264"
+TPU_PACKING = TPU_KERNEL + " (:99-116, 338-341, 406-413, 782-806, 821-830)"
+TPU_OP_RATES = "tools/vpu_ceiling.py:35"
+
+# P5: the sweep path.  BASELINE config #1 (BG2 A=100 R=1/2 QPSK, Z=20,
+# flooding normalized min-sum, 50 iterations) and the reference's snr_vs_a
+# defaults; goldens measured with the JAX package.
+CONFIG1_FIELDS = dict(BG=2, A=100, G=200, Q_m=2)
+CONFIG1_GOLDEN = "BLER_vs_SNR_BG2_A100_R12_QPSK_50it_minsum.json"
+CONFIG1_BATCH = 2048
+# The automatic rule packs no call of either sweep (it needs 8,192 codewords
+# per launch), so the packed kernels run on this path by the explicit knob:
+# config #1 again with ``codewords_per_block=CONFIG1_PACK`` (80 lanes, three
+# warps per block), which must change no point.
+CONFIG1_PACK = 4
+SNR_VS_A_GOLDEN = "SNR_vs_A_BG1_R13_QPSK_50it_sumproduct.json"
+# Required Es/N0 is interpolated between two points of 100 block errors each
+# on a 0.1 dB grid, so a point of the golden itself carries about +-0.03 dB of
+# sampling noise, and so does this run's; the waterfall's slope turns one
+# grid step of disagreement about where BLER crosses 1e-2 into less than
+# 0.1 dB.  0.15 dB holds both and is a sixth of the spread over A (0.58 dB).
+SNR_VS_A_TOLERANCE_DB = 0.15
+PACKED_ZS = (2, 3, 5, 8, 13, 20, 36, 48, 96, 144, 208)
 
 
 def emit(obj) -> None:
@@ -249,6 +283,306 @@ def phase_kernel_vs_plain(dev, tally):
           message_dtype="bfloat16", iterations=ITERATIONS, **ds)
 
 
+class Stopwatch:
+    """Seconds since the last lap, for the phase records."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+
+    def lap(self) -> float:
+        now = time.perf_counter()
+        seconds, self.last = now - self.last, now
+        return seconds
+
+
+def phase_packed_vs_plain(dev, tally):
+    """Several codewords per block: packed == ``codewords_per_block=1``
+    (every case) == plain (one of the twelve combinations per Z, in turn; the
+    one-codeword kernels are held against it in ``kernel_vs_plain``),
+    tolerance 0, for every Z of PACKED_ZS (base graph 1 at Z = 2, 5,
+    13, 36, 96), both schedules and the three rules; per rule one case with
+    f32 messages, 'd'/'sys' and early termination and one with 'cw' in and
+    out run to budget (bfloat16 messages for the min-sum family).  53
+    codewords, so every P leaves a ragged last block: 16 at high SNR (whole
+    blocks that pass at once), 16 of noise (whole blocks that never pass),
+    21 around the waterfall (0.5 and 1.5 dB at rate 1/3: the codewords of a block stop at different
+    sweeps).  Returns {Z: the P values compared} and, per Z and schedule, [most
+    sweeps of the high-SNR group, fewest of the noise group, distinct counts in
+    the waterfall group]."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.tools.small_z import noisy_llrs, params_for_z
+
+    compared, mixes, plain_cases = {}, {}, 0
+    for Z in PACKED_ZS:
+        params = params_for_z(1 if Z in (2, 5, 13, 36, 96) else 2, Z)
+        d = torch.cat([noisy_llrs(params, 16, 12.0, 40 + Z, dev),
+                       noisy_llrs(params, 16, -12.0, 41 + Z, dev),
+                       noisy_llrs(params, 11, 0.5, 42 + Z, dev),
+                       noisy_llrs(params, 10, 1.5, 43 + Z, dev)])
+        cw = codeword_llrs(params, d)
+        combination = 0
+        for schedule in ("layered", "flooding"):
+            fit = [P for P in (2, 4, 8, 16) if decoder_cuda._fits(schedule, params, P)]
+            ps = sorted({fit[0], fit[-1]}) if fit else []
+            compared[Z] = ps
+            if not fit:  # nothing to pack: asking for it raises
+                try:
+                    decoder_cuda.decode(params, d, schedule=schedule,
+                                        channel_format="d", codewords_per_block=2)
+                except ValueError:
+                    continue
+                raise AssertionError(f"codewords_per_block=2 at Z={Z} did not raise")
+            for rule in ("min-sum", "offset-min-sum", "sum-product"):
+                family = {} if rule == "sum-product" else dict(message_dtype="bfloat16")
+                for llr, kw in (
+                    (d, dict(channel_format="d", output_format="sys")),
+                    (cw, dict(early_termination=False, **family)),
+                ):
+                    kw = dict(kw, schedule=schedule, algorithm=rule, iterations=8)
+                    one = decoder_cuda.decode(params, llr, codewords_per_block=1, **kw)
+                    # the plain version is slow: it takes one of the twelve
+                    # combinations per Z, in turn (ten of them over the Zs)
+                    if combination == 5 * PACKED_ZS.index(Z) % 12:
+                        require_equal(
+                            one, decoder_cuda.decode_plain(params, llr, **kw), kw)
+                        plain_cases += 1
+                    combination += 1
+                    for P in ps:
+                        got = decoder_cuda.decode(params, llr, codewords_per_block=P, **kw)
+                        torch.cuda.synchronize()
+                        tally.add(f"V7-{schedule}",
+                                  require_equal(got, one, dict(kw, Z=Z, P=P)))
+                    if kw.get("early_termination", True) and rule == "min-sum":
+                        its = one.iterations.tolist()
+                        mixes[f"{Z}/{schedule}"] = [
+                            max(its[:16]), min(its[16:32]), len(set(its[32:]))]
+    # the point of the three groups: early blocks, blocks that never pass, and
+    # blocks whose codewords stop at different sweeps
+    mixed = sum(1 for hi, lo, kinds in mixes.values() if hi < lo and kinds > 1)
+    if mixed < len(mixes) // 2:
+        raise AssertionError(f"the LLRs do not mix sweeps within blocks: {mixes}")
+    return compared, mixes, plain_cases
+
+
+def phase_lifting_sweep(dev):
+    """Every lifting size of both base graphs, alternating 16QAM and 64QAM:
+    the configurations of golden/lifting_sweep.json (made by
+    tools/lifting_sweep.py: min-sum, flooding, 20 iterations), 16 blocks each
+    at 30 dB through ``simulate_batch`` and the kernel (backend 'auto').  As
+    in the golden, no block may fail."""
+    from ldpc_3gpp_tpu_torch.models.chain import ChainConfig, simulate_batch
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.ops.modulation import Q_M
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+
+    with open(os.path.join(ROOT, "golden", "lifting_sweep.json")) as f:
+        golden = json.load(f)
+    if golden["high_snr_failures"] != 0:
+        raise AssertionError("the golden itself records high-SNR failures")
+    torch.cuda.synchronize()
+    decoder_cuda.reset_launches()
+    configs, failures, zs = 0, [], set()
+    for rec in golden["results"]:
+        if rec["status"] == "unsupported":
+            continue
+        params = LDPCParams(BG=rec["bg"], A=rec["A"], G=rec["G"],
+                            Q_m=Q_M[rec["modulation"]])
+        if params.Z_c != rec["Z"] or params.C != 1:
+            raise AssertionError(f"golden record does not give its Z: {rec}")
+        cfg = ChainConfig(params=params, modulation=rec["modulation"],
+                          iterations=20, algorithm="min-sum", backend="auto")
+        r = simulate_batch(cfg, make_generator(rec["Z"], dev), 30.0, 16, device=dev)
+        configs += 1
+        zs.add((rec["bg"], rec["Z"]))
+        if int(r.block_errors) or int(r.blocks) != 16:
+            failures.append(dict(bg=rec["bg"], Z=rec["Z"], errors=int(r.block_errors)))
+    torch.cuda.synchronize()
+    out = dict(configs=configs, golden_configs=golden["configs_run"],
+               lifting_sizes=len(zs), block_errors=failures,
+               launches=dict(decoder_cuda.LAUNCHES), launches_by_P=launches_by_p())
+    if (failures or configs != golden["configs_run"]
+            or out["launches"] != {"ldpc_layered": 0, "ldpc_flooding": configs}):
+        raise AssertionError(f"lifting sweep: {out}")
+    return out
+
+
+def launches_by_p():
+    """``decoder_cuda.LAUNCHES_BY_P`` with printable keys."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    return {f"{k}/P={p}": n for (k, p), n in sorted(decoder_cuda.LAUNCHES_BY_P.items())}
+
+
+def two_sample_gate(name, esn0_db, blocks, errors, golden_blocks, golden_errors):
+    """This run's error rate against the golden's, samples of different
+    sizes: the difference of the rates has variance p (1-p) (1/n1 + 1/n2)
+    with p the pooled rate; the bound is 5 sigma plus one block of each."""
+    p = (errors + golden_errors) / (blocks + golden_blocks)
+    bound = (5.0 * math.sqrt(p * (1.0 - p) * (1.0 / blocks + 1.0 / golden_blocks))
+             + 1.0 / blocks + 1.0 / golden_blocks)
+    rec = dict(path=name, esn0_db=esn0_db, blocks=blocks, block_errors=errors,
+               golden_blocks=golden_blocks, golden_block_errors=golden_errors,
+               bler=errors / blocks, golden_bler=golden_errors / golden_blocks,
+               bound_bler=bound)
+    if abs(rec["bler"] - rec["golden_bler"]) > bound:
+        raise AssertionError(f"BLER outside the golden's binomial bound: {rec}")
+    return rec
+
+
+def phase_path_5(dev):
+    """P5, the sweeps on the card, into a temporary results directory.
+
+    ``snr_vs_a`` with the reference's defaults: every required Es/N0 within
+    SNR_VS_A_TOLERANCE_DB of the golden, the results file under the
+    reference's name and in its format.  ``bler_vs_snr`` at config #1 with
+    100 block errors per point, target BLER 1e-2, 2,048 blocks per call:
+    every point inside the two-sample bound of the golden curve; the
+    automatic rule packs no launch of either sweep.  The same sweep, same
+    seed, with ``codewords_per_block=CONFIG1_PACK`` asked for: every launch
+    packed, every ``SweepPoint`` and the results file equal to the first
+    run's (packing changes no result)."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.parallel.sweep import bler_vs_snr, snr_vs_a
+
+    with open(os.path.join(ROOT, "golden", SNR_VS_A_GOLDEN)) as f:
+        golden_a = json.load(f)
+    with open(os.path.join(ROOT, "golden", CONFIG1_GOLDEN)) as f:
+        golden_1 = json.load(f)
+    out = {}
+    with tempfile.TemporaryDirectory() as results_dir:
+        torch.cuda.synchronize()
+        decoder_cuda.reset_launches()
+        t0 = time.perf_counter()
+        curve = snr_vs_a(results_dir=results_dir, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(decoder_cuda.LAUNCHES)
+        (rate, points), = curve.items()
+        fname = os.path.join(results_dir, "SNR_vs_A_0.01_0.333333_1_QPSK_50_100_0.txt")
+        with open(fname) as f:
+            text = f.read()
+        if text != "".join(f"{a}\t{req:f}\n" for a, req in points):
+            raise AssertionError(f"results file is not in the reference's format: {text!r}")
+        worst = max(abs(req - g) for (_, req), g in
+                    zip(points, golden_a["required_esn0_db"]))
+        blocks = launches["ldpc_flooding"] * 256  # one code block per block
+        out["snr_vs_a"] = dict(
+            A=[a for a, _ in points], required_esn0_db=[req for _, req in points],
+            golden_required_esn0_db=golden_a["required_esn0_db"],
+            max_abs_diff_db=worst, tolerance_db=SNR_VS_A_TOLERANCE_DB,
+            results_file=os.path.basename(fname), seconds=seconds, blocks=blocks,
+            blocks_per_s=blocks / seconds, launches=launches,
+            launches_by_P=launches_by_p())
+        if ([a for a, _ in points] != golden_a["A"] or worst > SNR_VS_A_TOLERANCE_DB
+                or launches["ldpc_flooding"] < 1 or launches["ldpc_layered"]):
+            raise AssertionError(f"snr_vs_a outside its gate: {out['snr_vs_a']}")
+
+        torch.cuda.synchronize()
+        decoder_cuda.reset_launches()
+        t0 = time.perf_counter()
+        curves = bler_vs_snr(
+            A=[CONFIG1_FIELDS["A"]], rate=[1 / 2], bg=[2], modulation="QPSK",
+            iterations=50, target_block_errors=100, target_bler=1e-2,
+            algorithm="min-sum", batch_per_device=CONFIG1_BATCH,
+            results_dir=results_dir, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(decoder_cuda.LAUNCHES)
+        by_p = dict(decoder_cuda.LAUNCHES_BY_P)
+        (_, pts), = curves.items()
+        fname = os.path.join(results_dir, "BLER_vs_SNR_100_0.5_2_QPSK_50_100_0_0.txt")
+        with open(fname) as f:
+            text = f.read()
+        want = "".join(f"{pt.esn0_db:f}\t{pt.bler:e}\n" for pt in pts if pt.bler < 1)
+        if text != want or any(pt.capped for pt in pts):
+            raise AssertionError(f"results file is not in the reference's format: {text!r}")
+        gates = []
+        for pt in pts:
+            i = golden_1["esn0_db"].index(pt.esn0_db)
+            g_blocks = golden_1["blocks"][i]
+            gates.append(two_sample_gate(
+                "P5/config1", pt.esn0_db, pt.blocks, pt.block_errors, g_blocks,
+                round(golden_1["bler"][i] * g_blocks)))
+        blocks = sum(pt.blocks for pt in pts)
+        packed = sum(n for (k, p), n in by_p.items() if p > 1)
+        out["bler_vs_snr"] = dict(
+            points=gates, results_file=os.path.basename(fname), seconds=seconds,
+            blocks=blocks, blocks_per_s=blocks / seconds, launches=launches,
+            launches_by_P=launches_by_p(), packed_launches=packed)
+        if (pts[-1].bler > 1e-2 or len(pts) < 8 or packed
+                or blocks != launches["ldpc_flooding"] * CONFIG1_BATCH):
+            raise AssertionError(f"bler_vs_snr outside its gate: {out['bler_vs_snr']}")
+
+        packed_dir = os.path.join(results_dir, "packed")
+        torch.cuda.synchronize()
+        decoder_cuda.reset_launches()
+        t0 = time.perf_counter()
+        curves = bler_vs_snr(
+            A=[CONFIG1_FIELDS["A"]], rate=[1 / 2], bg=[2], modulation="QPSK",
+            iterations=50, target_block_errors=100, target_bler=1e-2,
+            algorithm="min-sum", batch_per_device=CONFIG1_BATCH,
+            results_dir=packed_dir, device=dev, verbose=False,
+            codewords_per_block=CONFIG1_PACK)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(decoder_cuda.LAUNCHES)
+        by_p = dict(decoder_cuda.LAUNCHES_BY_P)
+        (_, packed_pts), = curves.items()
+        with open(os.path.join(packed_dir, os.path.basename(fname))) as f:
+            packed_text = f.read()
+        differing = [pt.esn0_db for pt, one in zip(packed_pts, pts)
+                     if dataclasses.astuple(pt) != dataclasses.astuple(one)]
+        out["bler_vs_snr_explicit_P"] = dict(
+            codewords_per_block=CONFIG1_PACK, points=len(packed_pts),
+            points_differing_from_automatic_run=differing, seconds=seconds,
+            blocks=sum(pt.blocks for pt in packed_pts),
+            blocks_per_s=sum(pt.blocks for pt in packed_pts) / seconds, launches=launches,
+            launches_by_P=launches_by_p(),
+            packed_launches=by_p.get(("ldpc_flooding", CONFIG1_PACK), 0))
+        if (differing or len(packed_pts) != len(pts) or packed_text != text
+                or launches != out["bler_vs_snr"]["launches"]
+                or by_p != {("ldpc_flooding", CONFIG1_PACK): launches["ldpc_flooding"]}):
+            raise AssertionError(
+                f"packed sweep differs from the one-codeword sweep: "
+                f"{out['bler_vs_snr_explicit_P']}")
+    return out
+
+
+def phase_qam64_gate(dev):
+    """``MonteCarlo.run`` at BG1 A=8424 R=1/2 64QAM, layered min-sum, 12
+    iterations: block errors at 10.5 and 10.75 dB inside the 5-sigma bound of
+    golden/bench_path_bler.json QAM64_R12 (samples of the golden's sizes)."""
+    from ldpc_3gpp_tpu_torch.models.chain import ChainConfig
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+
+    with open(os.path.join(ROOT, "golden", "bench_path_bler.json")) as f:
+        curve = json.load(f)["QAM64_R12"]
+    params = LDPCParams(BG=1, A=8424, G=16848, Q_m=6)
+    assert params.Z_c == 384 and params.C == 1
+    cfg = ChainConfig(params=params, modulation="64QAM", iterations=ITERATIONS,
+                      algorithm="min-sum", schedule="layered")
+    mc = MonteCarlo(cfg, batch_per_device=1024, steps_per_call=2, device=dev)
+    generator = make_generator(6, dev)
+    torch.cuda.synchronize()
+    decoder_cuda.reset_launches()
+    out = []
+    for esn0_db in (10.5, 10.75):
+        i = curve["esn0_db"].index(esn0_db)
+        n = curve["blocks"][i]
+        c = mc.run_pipelined(generator, esn0_db, n // mc.blocks_per_run)
+        if int(c["iteration_hist"].sum()) != c["blocks"]:
+            raise AssertionError("iteration histogram does not count every block")
+        out.append(binomial_gate("QAM64_R12", esn0_db, c["blocks"], c["block_errors"],
+                                 curve["block_errors"][i], n))
+    launches = dict(decoder_cuda.LAUNCHES)
+    expect_launches(launches, "ldpc_layered", (2048 + 6144) // 1024)
+    return out, launches
+
+
 def phase_phi(dev):
     """The kernels' phi device function against the plain ``_phi``: equal
     bits on a log grid and uniform samples over [1e-9, 40]."""
@@ -307,6 +641,16 @@ def p3_config(schedule):
     assert params.C == 1 and params.Z_c == 208
     return ChainConfig(params=params, iterations=8, algorithm="sum-product",
                        schedule=schedule)
+
+
+def config1_config(**kw):
+    """BASELINE config #1's code (Z=20) with normalized min-sum."""
+    from ldpc_3gpp_tpu_torch.models.chain import ChainConfig
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+
+    params = LDPCParams(**CONFIG1_FIELDS)
+    assert params.Z_c == 20 and params.C == 1
+    return ChainConfig(params=params, iterations=ITERATIONS, algorithm="min-sum", **kw)
 
 
 def counted_steps(cfg, generator, esn0_db, batch, steps, dev):
@@ -490,16 +834,26 @@ VARIANT_STEPS = {
     "V4-flooding": ("ldpc_flooding", lambda: p2_config(early_termination=False)),
     "V6-flooding": ("ldpc_flooding", lambda: p2_config(
         algorithm="min-sum", message_dtype="bfloat16")),
+    "V7-layered": ("ldpc_layered", lambda: config1_config(
+        schedule="layered", codewords_per_block=CONFIG1_PACK)),
 }
 
 
 def phase_variant_steps(generator, dev):
-    """Launches per variant in one 256-block step at 1.0 dB each."""
+    """Launches per variant in one step at 1.0 dB each: 256 blocks, and for
+    V7 config #1's 2,048 with ``codewords_per_block=CONFIG1_PACK`` asked for."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
     out = {}
     for variant, (kernel, make) in VARIANT_STEPS.items():
-        blocks, errors, _, n = counted_steps(make(), generator, 1.0, 256, 1, dev)
+        batch = CONFIG1_BATCH if variant.startswith("V7") else 256
+        blocks, errors, _, n = counted_steps(make(), generator, 1.0, batch, 1, dev)
         expect_launches(n, kernel, 1)
-        out[variant] = dict(launches=n[kernel], blocks=blocks, block_errors=errors)
+        out[variant] = dict(launches=n[kernel], blocks=blocks, block_errors=errors,
+                            launches_by_P=launches_by_p())
+        packed = any(p > 1 for (_, p) in decoder_cuda.LAUNCHES_BY_P)
+        if packed != variant.startswith("V7"):
+            raise AssertionError(f"{variant}: unexpected codewords per block: {out[variant]}")
     return out
 
 
@@ -547,7 +901,40 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
         bytes_ms=t_bytes, operations_ms=t_ops,
         mean_sweeps=total_updates / n,
         scratch_traffic_ms=scratch / PEAK_BYTES_PER_S * 1e3,
+        # the work itself, for ``measured_rate``
+        update_edge_lanes=E * Z * total_updates,
+        syndrome_edge_lanes=E * Z * total_syndromes, scratch_bytes=scratch,
     )
+
+
+# The operations of one edge and lane in an update sweep by the class of the
+# op-rate microbenchmark they fall in (they add up to OPS_PER_EDGE_LANE and
+# OPS_PER_EDGE_LANE_SUM_PRODUCT; phi's arithmetic counts as multiply/add).
+OP_MIX = {
+    "min-sum": {"bitops": 5, "addmul": 2, "minmax": 3, "select": 2},
+    "sum-product": {"addmul": 134, "bitops": 5, "select": 4},
+}
+
+
+def measured_rate(work, rates, algorithm):
+    """Time (ms) the same work takes at the rates the op-rate microbenchmark
+    measured in this kernel's block shape: the arithmetic by class (classes
+    share the instruction slots, so their times add), the totals' shared-memory
+    accesses (an update touches an edge and lane with one rotated read and one
+    write, which is one rotation; a syndrome pass only reads: half), and the
+    scratch traffic at the scratch stream's rate.  The three overlap at best,
+    so ``measured_rate_ms`` is the largest; their sum is given too."""
+    mix = OP_MIX["sum-product" if algorithm == "sum-product" else "min-sum"]
+    alu = sum(work["update_edge_lanes"] * count / rates[c]["operations_per_s"]
+              for c, count in mix.items())
+    alu += work["syndrome_edge_lanes"] / rates["bitops"]["operations_per_s"]
+    shared = ((work["update_edge_lanes"] + 0.5 * work["syndrome_edge_lanes"])
+              / rates["rotate"]["operations_per_s"])
+    scratch = work["scratch_bytes"] / rates["scratch"]["bytes_per_s"]
+    parts = dict(arithmetic_ms=alu * 1e3, shared_memory_ms=shared * 1e3,
+                 scratch_ms=scratch * 1e3)
+    return dict(measured_rate_ms=max(parts.values()),
+                measured_rate_sum_ms=sum(parts.values()), **parts)
 
 
 def measure_variant(params, llr, reps, **kw):
@@ -575,8 +962,94 @@ def measure_variant(params, llr, reps, **kw):
         message_bytes=2 if kw.get("message_dtype") == "bfloat16" else 4,
     )
     n = res.iterations.numel()
+    P = decoder_cuda.resolve_codewords_per_block(
+        params, n, kw.get("schedule", "layered"), kw.get("codewords_per_block", 0))
+    shape = dict(
+        Z=params.Z_c, E=len(params.edges[0]), codewords_per_block=P,
+        threads=-(-(P * params.Z_c) // 32) * 32,
+        blocks_per_sm=decoder_cuda.blocks_per_sm(
+            params, kw.get("schedule", "layered"), kw.get("algorithm", "min-sum"),
+            kw.get("message_dtype", "float32"), P))
     return dict(ms=ms, us_per_codeword=ms * 1e3 / n, plain_ms=plain_ms,
-                max_abs_diff=diff, codewords=n, **bound)
+                max_abs_diff=diff, codewords=n, algorithm=kw.get("algorithm", "min-sum"),
+                **shape, **bound)
+
+
+def phase_op_rates(dev, times):
+    """K2.  Every class equals its plain version at a small loop count
+    (tolerance 0: the number of values whose bits differ must be 0) in three
+    small block shapes and then in the block shape, at the block count, of
+    every timed kernel variant; with the launch count set to 0 before and read
+    after, the rates in those shapes, from which each variant's
+    ``measured_rate_ms`` follows.  The record's own timed input goes through
+    the kernel and the plain version and is compared too.  Returns the K2
+    record of the ``kernels`` line and the rates by shape."""
+    from ldpc_3gpp_tpu_torch.tools import op_rates
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = 0
+
+    def compare_all(blocks, threads, Z, E, blocks_per_sm):
+        nonlocal cases
+        for op in op_rates.CLASSES:
+            differing = op_rates.compare(op, blocks, threads, Z, E, 2, dev, blocks_per_sm)
+            if differing:
+                raise AssertionError(
+                    f"op_rates class {op} differs from its plain version in "
+                    f"{differing} values at {blocks} blocks of {threads} threads, "
+                    f"Z={Z}, E={E}, {blocks_per_sm} blocks per SM")
+            cases += 1
+
+    for blocks, threads, Z, E in ((5, 384, 384, 312), (7, 128, 104, 192), (9, 32, 20, 40)):
+        compare_all(blocks, threads, Z, E, 2)
+
+    torch.cuda.synchronize()
+    op_rates.reset_launches()
+    by_shape = {}
+    for variant, m in times.items():
+        # a packed block's lanes form one run of P*Z, as one codeword's Z do
+        key = (m["threads"], m["Z"] * m["codewords_per_block"], m["E"],
+               m["blocks_per_sm"])
+        if key not in by_shape:
+            by_shape[key] = op_rates.rates(*key, dev)
+        m.update(measured_rate(m, by_shape[key], m["algorithm"]))
+    torch.cuda.synchronize()
+    launches = op_rates.LAUNCHES[op_rates.KERNEL_NAME]
+
+    # the shapes the rates were taken in, each held against the plain version
+    for threads, Z, E, per_sm in by_shape:
+        compare_all(sms * per_sm, threads, Z, op_rates.scratch_edges(E), per_sm)
+
+    # the K2 record: the multiply/add class in the flagship's block shape, kernel
+    # and plain version on the same input at the same small loop count
+    loops, threads, per_sm = 2, 384, 2
+    x = torch.from_numpy(op_rates.make_input("addmul", sms * per_sm, threads, threads)).to(dev)
+    got = op_rates.run("addmul", x, loops, threads, 0, per_sm)
+    torch.cuda.synchronize()
+    want = op_rates.plain("addmul", x, loops)
+    differing = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    max_abs_diff = float((got - want).abs().max())
+    if differing or max_abs_diff != 0.0 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(
+            f"op_rates differs from its plain version on the timed input: "
+            f"{differing} values, max abs diff {max_abs_diff}")
+    cases += 1
+    ms = time_ms(lambda: op_rates.run("addmul", x, loops, threads, 0, per_sm), reps=20)
+    plain_ms = time_ms(lambda: op_rates.plain("addmul", x, loops), reps=2, warmup=1)
+    w = op_rates.work("addmul", sms * per_sm, threads, threads, 0, loops)
+    t_bytes = x.numel() * 8 / PEAK_BYTES_PER_S * 1e3
+    t_ops = w["operations"] / PEAK_OPS_PER_S * 1e3
+    record = dict(
+        cases=cases, launches=launches, max_abs_diff=max_abs_diff,
+        differing_values=differing, values_compared=got.numel(),
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms=t_bytes, operations_ms=t_ops)
+    rates = [
+        {"threads": k[0], "Z": k[1], "E": k[2], "blocks_per_sm": k[3],
+         **{op: (r["operations_per_s"] or r["bytes_per_s"]) for op, r in v.items()}}
+        for k, v in by_shape.items()]
+    return record, rates
 
 
 def profile_steps(step, n, step_ms):
@@ -716,12 +1189,58 @@ def phase_times(generator, dev, card):
     out["V2"] = measure_variant(p3, d3, 10, algorithm="sum-product", iterations=8, **ds)
     del d3
 
+    # V7 at the shape the sweep path hands the packed kernels, config #1's call
+    # (Z=20, 2,048 codewords at 2.0 dB) with CONFIG1_PACK codewords per block,
+    # and the one-codeword kernel beside it: layered at the variant step's 12
+    # iterations, flooding at the sweep's 50
+    p7 = LDPCParams(**CONFIG1_FIELDS)
+    d7, _ = noisy_d_tilde(p7, "QPSK", 2.0, CONFIG1_BATCH, 24, dev)
+    for name, kw in (
+        ("V7-layered", dict(schedule="layered", iterations=ITERATIONS)),
+        ("V7-flooding", dict(schedule="flooding", iterations=50)),
+    ):
+        kw = dict(kw, algorithm="min-sum", **ds)
+        out[name] = measure_variant(p7, d7, 20, codewords_per_block=CONFIG1_PACK, **kw)
+        assert out[name]["codewords_per_block"] == CONFIG1_PACK
+        out[name]["ms_one_codeword_per_block"] = time_ms(
+            lambda: decoder_cuda.decode(p7, d7, codewords_per_block=1, **kw), reps=20)
+    del d7
+
+    from ldpc_3gpp_tpu_torch.tools import small_z
+
+    watch = Stopwatch()
+    packing = small_z.packing_table(dev)
+    # a sweep's conditions: 50 iterations above the waterfall, where a few
+    # codewords run the whole budget and most stop early
+    packing_50 = small_z.packing_table(dev, zs=(2, 8, 20), ns=(4096, 16384),
+                                       iterations=50, esn0_db=3.0)
+    packing_s = watch.lap()
+    routing = small_z.routing_table(dev, zs=(2, 3, 5, 8, 12, 16), ns=(2048,))
+    # the automatic choice must not lose to one codeword per block (30 %: the
+    # largest loss in the tables it was derived from is 7 %)
+    for row in packing + packing_50:
+        us = {int(k): v for k, v in row["us_per_codeword"].items()}
+        if row["auto_P"] != 1 and us[row["auto_P"]] > 1.3 * us[1]:
+            raise AssertionError(f"automatic codewords_per_block loses: {row}")
+    losses = [r for r in routing if not r["kernel_wins"]]
+    from ldpc_3gpp_tpu_torch.ops.decoder_cuda import supports
+    for r in routing:
+        if supports(small_z.table_params(r["Z"])) != (
+                not any(l["Z"] == r["Z"] for l in losses)):
+            raise AssertionError(f"'auto' routing disagrees with the table: {r}")
+
     emit({"times": {
         "card": card,
+        "small_z_packing": packing, "small_z_packing_budget_50": packing_50,
+        "small_z_packing_seconds": packing_s,
+        "small_z_routing": routing, "small_z_routing_seconds": watch.lap(),
         "kernels": {v: {k: m[k] for k in (
             "ms", "us_per_codeword", "plain_ms", "bound_ms", "bound_by",
-            "scratch_traffic_ms", "mean_sweeps", "codewords")}
+            "scratch_traffic_ms", "mean_sweeps", "codewords",
+            "codewords_per_block", "threads", "blocks_per_sm")}
             for v, m in out.items()},
+        "V7_ms_one_codeword_per_block": {
+            v: out[v]["ms_one_codeword_per_block"] for v in ("V7-flooding", "V7-layered")},
         "kernel_us_per_codeword_at_4x_batch": out["V1"]["us_per_codeword_at_4x_batch"],
         "P1": step_times(flagship_config(), generator, MAIN_ESN0_DB, dev),
         "P2": step_times(p2_config(), generator, MAIN_ESN0_DB, dev),
@@ -743,6 +1262,8 @@ VARIANTS = [
     ("V3-OMS", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V4-flooding", FLOODING_SOURCE, TPU_KERNEL + " (:494-500, 549-573)"),
     ("V6-flooding", FLOODING_SOURCE, TPU_KERNEL + " (:480-484, 633-635)"),
+    ("V7-layered", LAYERED_SOURCE, TPU_PACKING),
+    ("V7-flooding", FLOODING_SOURCE, TPU_PACKING),
 ]
 
 
@@ -766,28 +1287,36 @@ def main() -> int:
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
+    watch = Stopwatch()
     libs = kernels_build.build()
-    build_s = time.perf_counter() - t0
     ptxas = [ln for n in libs for ln in kernels_build.build_log(n).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "seconds": build_s, "kernels": sorted(libs),
+    emit({"phase": "build", "seconds": watch.lap(), "kernels": sorted(libs),
           "ptxas": ptxas})
 
     tally = Tally()
     phase_kernel_vs_plain(dev, tally)
-    emit({"phase": "kernel_vs_plain", "cases": tally.total,
+    emit({"phase": "kernel_vs_plain", "seconds": watch.lap(), "cases": tally.total,
           "max_abs_diff": tally.max_abs_diff, "tolerance": 0,
-          "cases_by_variant": tally.cases})
+          "cases_by_variant": dict(tally.cases)})
 
-    emit({"phase": "phi", **phase_phi(dev)})
+    compared, mixes, plain_cases = phase_packed_vs_plain(dev, tally)
+    emit({"phase": "packed_vs_plain", "seconds": watch.lap(),
+          "cases": tally.cases["V7-layered"] + tally.cases["V7-flooding"],
+          "max_abs_diff": max(tally.worst["V7-layered"], tally.worst["V7-flooding"]),
+          "tolerance": 0, "codewords": 53, "plain_version_cases": plain_cases,
+          "codewords_per_block_by_Z": compared,
+          "sweeps_high_noise_kinds": mixes})
+
+    emit({"phase": "phi", "seconds": watch.lap(), **phase_phi(dev)})
 
     launches = {}  # variant -> launches on the path that runs it
     generator = make_generator(0, dev)
     cfg = flagship_config()
     blocks, errors, iters, n = counted_steps(
         cfg, generator, MAIN_ESN0_DB, MAIN_BATCH, MAIN_STEPS, dev)
-    emit({"phase": "main_path", "config": "BG1 A=8424 G=25272 Z=384 QPSK "
+    emit({"phase": "main_path", "seconds": watch.lap(),
+          "config": "BG1 A=8424 G=25272 Z=384 QPSK "
           "layered min-sum 12 it early termination", "esn0_db": MAIN_ESN0_DB,
           "batch": MAIN_BATCH, "steps": MAIN_STEPS, "blocks": blocks,
           "block_errors": errors, "mean_iterations_per_tb": iters / blocks,
@@ -799,7 +1328,8 @@ def main() -> int:
 
     blocks, errors, iters, n = counted_steps(
         p2_config(), generator, MAIN_ESN0_DB, MAIN_BATCH, MAIN_STEPS, dev)
-    emit({"phase": "main_path_2", "config": "BG2 A=3842 G=11526 C=2 Z=208 QPSK "
+    emit({"phase": "main_path_2", "seconds": watch.lap(),
+          "config": "BG2 A=3842 G=11526 C=2 Z=208 QPSK "
           "default decoder (sum-product, flooding) 8 it early termination",
           "esn0_db": MAIN_ESN0_DB, "batch": MAIN_BATCH, "steps": MAIN_STEPS,
           "codewords_per_launch": MAIN_BATCH * 2, "blocks": blocks,
@@ -811,23 +1341,44 @@ def main() -> int:
     if blocks != MAIN_BATCH * MAIN_STEPS or errors > P2_MAX_ERRORS:
         raise AssertionError(f"main path 2: {errors} block errors in {blocks} blocks")
 
-    emit({"phase": "chain_gpu_vs_cpu", "cases": phase_chain_gpu_vs_cpu(dev)})
+    emit({"phase": "chain_gpu_vs_cpu", "cases": phase_chain_gpu_vs_cpu(dev),
+          "seconds": watch.lap()})
 
     points, p4_launches = phase_bler_gate(generator, dev)
-    emit({"phase": "bler_gate", "points": points})
+    emit({"phase": "bler_gate", "seconds": watch.lap(), "points": points})
     launches["V6-layered"] = p4_launches["ldpc_layered"]
 
     p3, p3_launches = phase_path_3(generator, dev)
-    emit({"phase": "path_3", "config": "BG2 A=2048 G=6144 Z=208 QPSK "
+    emit({"phase": "path_3", "seconds": watch.lap(),
+          "config": "BG2 A=2048 G=6144 Z=208 QPSK "
           "sum-product 8 it early termination", "esn0_db": P3_ESN0_DB,
           "schedules": p3})
     launches["V2"] = p3_launches["layered"]
 
     steps = phase_variant_steps(generator, dev)
-    emit({"phase": "variant_steps", "variants": steps})
+    emit({"phase": "variant_steps", "seconds": watch.lap(), "variants": steps})
     launches.update({v: rec["launches"] for v, rec in steps.items()})
 
+    emit({"phase": "lifting_sweep", **phase_lifting_sweep(dev), "seconds": watch.lap()})
+
+    p5 = phase_path_5(dev)
+    emit({"phase": "path_5", "seconds": watch.lap(), **p5})
+    launches["V7-flooding"] = p5["bler_vs_snr_explicit_P"]["packed_launches"]
+
+    qam, qam_launches = phase_qam64_gate(dev)
+    emit({"phase": "qam64_gate", "seconds": watch.lap(), "points": qam,
+          "launches": qam_launches})
+
     times = phase_times(generator, dev, card)
+    emit({"phase": "times", "seconds": watch.lap()})
+
+    k2, rates = phase_op_rates(dev, times)
+    emit({"phase": "op_rates", "seconds": watch.lap(), "card": card, "K2": k2,
+          "rates_by_block_shape": rates,
+          "measured_rate_ms": {v: {k: m[k] for k in (
+              "measured_rate_ms", "measured_rate_sum_ms", "arithmetic_ms",
+              "shared_memory_ms", "scratch_ms", "ms", "bound_ms")}
+              for v, m in times.items()}})
 
     kernels = []
     for variant, source, replaces in VARIANTS:
@@ -836,19 +1387,27 @@ def main() -> int:
             raise AssertionError(f"{variant} was launched on no path")
         diff = max(tally.worst[variant], m["max_abs_diff"])
         kernels.append({
-            "name": f"{os.path.splitext(os.path.basename(source))[0]}/{variant}",
+            "name": f"{os.path.splitext(os.path.basename(source))[0]}/"
+                    f"{'V7' if variant.startswith('V7') else variant}",
             "route": "cuda", "source": source, "replaces": replaces,
             "variant": variant, "cases": tally.cases[variant] + 1,
             "launches": launches[variant], "max_abs_err": diff,
             "max_abs_diff": diff, "tolerance": 0,
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "measured_rate_ms": m["measured_rate_ms"],
             "bytes_ms": m["bytes_ms"], "operations_ms": m["operations_ms"],
             "scratch_traffic_ms": m["scratch_traffic_ms"],
             "mean_sweeps": m["mean_sweeps"], "codewords": m["codewords"],
+            "codewords_per_block": m["codewords_per_block"],
             "card": card,
         })
+    if k2["launches"] < 1:
+        raise AssertionError("op_rates was launched on no path")
+    kernels.append({
+        "name": "op_rates/K2", "route": "cuda", "source": OP_RATES_SOURCE,
+        "replaces": TPU_OP_RATES, "variant": "K2",
+        "max_abs_err": k2["max_abs_diff"], "tolerance": 0, "library_ms": None, "card": card, **k2})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

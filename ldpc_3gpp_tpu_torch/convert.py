@@ -8,7 +8,11 @@ any check rule or message type.  A ``ChainConfig`` needs no helper: apart
 from ``params`` its fields are plain values with the same names and defaults
 in both packages (``algorithm``, ``schedule``, ``message_dtype``,
 ``alpha_schedule`` included), so it carries across field by field
-(tests/test_torch_chain_default.py).
+(tests/test_torch_chain_default.py).  The sweeps and ``MonteCarlo``
+(``parallel/``) add nothing to carry: they hold no parameters and no state
+beyond a ``ChainConfig``, their random streams differ between the packages
+by design, and what a sweep leaves behind is its results files, which both
+packages read and write in the same format (resume works across them).
 """
 from __future__ import annotations
 

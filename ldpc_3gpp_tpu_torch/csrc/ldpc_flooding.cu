@@ -42,6 +42,14 @@
 //     zero-filled.
 // The check-node update, phi and the notes on bit-exactness are in
 // ldpc_bp.cuh, shared with the layered kernel.
+//
+// Several small-Z codewords per block (ldpc_flooding_packed_kernel below)
+// replaces the TPU kernel's packed tiles (decoder_pallas.py::_auto_pack and
+// its segment-local parity vote); ldpc_layered.cu says what bounds a small-Z
+// block on this card and what the packed layout does about it.  Here a block
+// holds P sets of totals and column sums, and a codeword whose syndrome
+// passed stops as the one-codeword kernel does while its lanes go on to
+// every barrier until all P codewords of the block are done.
 
 #include "ldpc_bp.cuh"
 
@@ -113,23 +121,123 @@ ldpc_flooding_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
   }
 }
 
+// P codewords per block (P >= 2): thread t owns lane t % Z of codeword t / Z.
+// Per codeword the arithmetic and the stopping rule are the one-codeword
+// kernel's, so the results are bit-identical.  Shared memory: P sets of
+// totals, P sets of column sums, the edge table (message offsets scaled by P:
+// the block's scratch is (E, P*Z)), the row offsets, a flag word per codeword.
+template <bool SUM_PRODUCT, typename MSG>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+ldpc_flooding_packed_kernel(const float* __restrict__ llr,
+                            int8_t* __restrict__ bits, int* __restrict__ ok_out,
+                            int* __restrict__ it_out, MSG* __restrict__ c2v_all,
+                            const int4* __restrict__ edges_g,
+                            const int* __restrict__ row_start_g, DecodeArgs a,
+                            int P, int ncw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Z = a.Z, nc = a.nc, nr = a.nr, E = a.E;
+  int4* edges = reinterpret_cast<int4*>(smem + align16((size_t)2 * P * nc * Z * 4));
+  int* row_start = reinterpret_cast<int*>(edges + E);
+  int* flags = row_start + nr + 1;
+
+  const int t = threadIdx.x;
+  const int k = t / Z;       // codeword of this thread within the block
+  const int z = t - k * Z;   // its lane
+  const size_t cw = (size_t)blockIdx.x * P + k;
+  const bool active = k < P && cw < (size_t)ncw;
+  float* totals = reinterpret_cast<float*>(smem) + (size_t)(active ? k : 0) * nc * Z;
+  float* acc = totals + (size_t)P * nc * Z;
+
+  for (int i = t; i < E; i += blockDim.x) {
+    int4 ed = edges_g[i];
+    ed.z *= P;
+    edges[i] = ed;
+  }
+  for (int i = t; i <= nr; i += blockDim.x) row_start[i] = row_start_g[i];
+
+  const float* src = llr + (active ? cw : 0) * (size_t)((a.d_input ? nc - 2 : nc) * Z);
+  if (active) load_totals<false>(totals, nullptr, src, z, a);
+  __syncthreads();
+
+  MSG* c2v = c2v_all + (size_t)blockIdx.x * ((size_t)E * P * Z) + t;
+  int ok = 0;
+  int used = a.iterations;
+  bool done = !active;  // nothing (more) to do for this thread
+
+  for (int it = 0;; ++it) {
+    // Early termination checks before every update and once after the last;
+    // a run to budget checks only the final state.  Uniform over the block.
+    if (a.early_termination || it == a.iterations) {
+      if (t < P) flags[t] = 0;
+      __syncthreads();
+      if (!done) {
+        const unsigned bad = syndrome_bits(totals, edges, row_start, nr, z, Z);
+        if (bad & SIGN_BIT) flags[k] = 1;
+      }
+      __syncthreads();
+      if (!done && !flags[k]) {
+        ok = 1;
+        if (a.early_termination) used = it;
+        done = true;
+      }
+      if (it == a.iterations) break;
+      if (__syncthreads_and(done)) break;
+    }
+
+    const bool first = it == 0;
+    const float alpha_t = it < a.n0 ? a.alpha0 : a.alpha;
+    for (int r = 0; r < nr; ++r) {
+      const int e0 = row_start[r];
+      if (!done)
+        check_row<SUM_PRODUCT, true, MSG>(totals, acc, c2v, edges, e0,
+                                          row_start[r + 1] - e0, z, Z, first,
+                                          alpha_t, a.offset_rule, a.beta);
+      __syncthreads();
+    }
+    if (!done) load_totals<true>(totals, acc, src, z, a);
+    __syncthreads();
+  }
+
+  if (active) {
+    int8_t* dst = bits + cw * (size_t)(a.out_cols * Z);
+    for (int c = 0; c < a.out_cols; ++c)
+      dst[c * Z + z] = totals[c * Z + z] < 0.0f;
+    if (z == 0) {
+      ok_out[cw] = ok;
+      it_out[cw] = used;
+    }
+  }
+}
+
 extern "C" int ldpc_flooding_max_degree() { return MAX_DEG; }
 extern "C" int ldpc_flooding_max_z() { return MAX_THREADS; }
 extern "C" int ldpc_flooding_max_shared_bytes() { return max_shared_bytes_optin(); }
 
-// Dynamic shared memory of one block: totals, column sums, edge table, row
-// offsets.
-extern "C" int ldpc_flooding_shared_bytes(int Z, int nc, int nr, int E) {
-  return (int)(align16((size_t)2 * nc * Z * 4) + (size_t)E * 16 +
-               (size_t)(nr + 1) * 4);
+// Dynamic shared memory of one block of P codewords: P sets of totals and of
+// column sums, edge table, row offsets and, for P > 1, a flag word per
+// codeword.
+extern "C" int ldpc_flooding_shared_bytes(int Z, int nc, int nr, int E, int P) {
+  return (int)(align16((size_t)2 * P * nc * Z * 4) + (size_t)E * 16 +
+               (size_t)(nr + 1) * 4 + (P > 1 ? (size_t)P * 4 : 0));
 }
 
 template <bool SUM_PRODUCT, typename MSG>
 static int launch(const void* llr, void* bits, void* ok, void* iters, void* c2v,
-                  const void* edges, const void* row_start, int ncw,
+                  const void* edges, const void* row_start, int ncw, int P,
                   const DecodeArgs& a, cudaStream_t stream) {
-  const int threads = ((a.Z + 31) / 32) * 32;
-  const int smem_bytes = ldpc_flooding_shared_bytes(a.Z, a.nc, a.nr, a.E);
+  const int threads = ((P * a.Z + 31) / 32) * 32;
+  const int smem_bytes = ldpc_flooding_shared_bytes(a.Z, a.nc, a.nr, a.E, P);
+  if (P > 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ldpc_flooding_packed_kernel<SUM_PRODUCT, MSG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    ldpc_flooding_packed_kernel<SUM_PRODUCT, MSG>
+        <<<(ncw + P - 1) / P, threads, smem_bytes, stream>>>(
+            (const float*)llr, (int8_t*)bits, (int*)ok, (int*)iters, (MSG*)c2v,
+            (const int4*)edges, (const int*)row_start, a, P, ncw);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       ldpc_flooding_kernel<SUM_PRODUCT, MSG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -140,18 +248,51 @@ static int launch(const void* llr, void* bits, void* ok, void* iters, void* c2v,
   return (int)cudaGetLastError();
 }
 
+template <bool SUM_PRODUCT, typename MSG>
+static int occupancy(int P, int threads, int smem_bytes) {
+  int n = 0;
+  const void* kernel =
+      P > 1 ? (const void*)ldpc_flooding_packed_kernel<SUM_PRODUCT, MSG>
+            : (const void*)ldpc_flooding_kernel<SUM_PRODUCT, MSG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem_bytes);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Blocks of the instantiation that `ldpc_flooding_decode` would launch for these
+// arguments that one SM of the current device holds at a time (registers,
+// threads and shared memory considered); negative: a CUDA error code.
+extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
+                                          int codewords_per_block, int Z, int nc,
+                                          int nr, int E) {
+  const int P = codewords_per_block;
+  if (Z < 1 || P < 1 || P * Z > MAX_THREADS) return -(int)cudaErrorInvalidValue;
+  const int threads = ((P * Z + 31) / 32) * 32;
+  const int smem_bytes = ldpc_flooding_shared_bytes(Z, nc, nr, E, P);
+  if (rule == RULE_SUM_PRODUCT) return occupancy<true, float>(P, threads, smem_bytes);
+  if (bf16_messages) return occupancy<false, __nv_bfloat16>(P, threads, smem_bytes);
+  return occupancy<false, float>(P, threads, smem_bytes);
+}
+
 // Launches the decoder for `ncw` codewords on `stream`; the edge table must
 // be in ascending row order.  `rule` is 0 (min-sum), 1 (offset-min-sum) or 2
 // (sum-product); `bf16_messages` selects the scratch's element type (min-sum
-// family only).  Does not synchronise and allocates nothing.  Returns
-// cudaGetLastError().
+// family only).  `codewords_per_block` P = 1 runs one block per codeword with
+// the scratch laid out (ncw, E, Z); P > 1 runs ceil(ncw / P) blocks of the
+// packed kernel, whose scratch must hold ceil(ncw / P) * P * E * Z elements.
+// Does not synchronise and allocates nothing.  Returns cudaGetLastError().
 extern "C" int ldpc_flooding_decode(
     const void* llr, void* bits, void* ok, void* iters, void* c2v,
     const void* edges, const void* row_start, int ncw, int Z, int nc, int nr,
     int E, int out_cols, int d_input, int fill_lo, int fill_hi, int iterations,
-    int early_termination, int rule, int bf16_messages, float alpha,
-    float beta, float alpha0, int n0, void* stream) {
+    int early_termination, int rule, int bf16_messages,
+    int codewords_per_block, float alpha, float beta, float alpha0, int n0,
+    void* stream) {
+  const int P = codewords_per_block;
   if (Z < 1 || Z > MAX_THREADS || ncw < 1) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P * Z > MAX_THREADS) return (int)cudaErrorInvalidValue;
   if (rule < RULE_MIN_SUM || rule > RULE_SUM_PRODUCT) return (int)cudaErrorInvalidValue;
   if (rule == RULE_SUM_PRODUCT && bf16_messages) return (int)cudaErrorInvalidValue;
   DecodeArgs a;
@@ -162,10 +303,10 @@ extern "C" int ldpc_flooding_decode(
   a.alpha = alpha; a.beta = beta; a.alpha0 = alpha0; a.n0 = n0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (rule == RULE_SUM_PRODUCT)
-    return launch<true, float>(llr, bits, ok, iters, c2v, edges, row_start, ncw, a, s);
+    return launch<true, float>(llr, bits, ok, iters, c2v, edges, row_start, ncw, P, a, s);
   if (bf16_messages)
-    return launch<false, __nv_bfloat16>(llr, bits, ok, iters, c2v, edges, row_start, ncw, a, s);
-  return launch<false, float>(llr, bits, ok, iters, c2v, edges, row_start, ncw, a, s);
+    return launch<false, __nv_bfloat16>(llr, bits, ok, iters, c2v, edges, row_start, ncw, P, a, s);
+  return launch<false, float>(llr, bits, ok, iters, c2v, edges, row_start, ncw, P, a, s);
 }
 
 // phi on `n` values, one thread each: a test entry that holds the device

@@ -53,6 +53,9 @@ class ChainConfig:
     backend: str = "auto"
     schedule: str = "flooding"  # BP schedule: 'flooding' | 'layered'
     message_dtype: str = "float32"
+    # codewords per block of the CUDA kernels (ops.decoder_cuda.decode): 0
+    # automatic, 1 one block per codeword, P > 1 explicit.  Changes no result.
+    codewords_per_block: int = 0
     # iteration-dependent NMS normalization (alpha0, n0): alpha0 for the
     # first n0 sweeps, then `alpha`.  None = constant alpha.
     alpha_schedule: Optional[Tuple[float, int]] = None
@@ -106,6 +109,18 @@ class BatchResult(NamedTuple):
     tb_ok: torch.Tensor  # (batch,) per-block success (for found-start logic)
 
 
+def _efficient_batch(batch: int) -> int:
+    """The batch a Monte-Carlo runner simulates for a requested ``batch``:
+    the next multiple of 128 above 64, unchanged up to 64.
+
+    The JAX package rounds so (its compiled program is better at multiples of
+    128); the port keeps the rule so that a sweep with the same arguments
+    simulates the same number of blocks per call in both packages.
+    ``simulate_batch`` itself simulates exactly the batch it is given.
+    """
+    return batch if batch <= 64 else -(-batch // 128) * 128
+
+
 @torch.no_grad()
 def simulate_given(
     cfg: ChainConfig,
@@ -157,6 +172,7 @@ def simulate_given(
             schedule=cfg.schedule,
             message_dtype=cfg.message_dtype,
             alpha_schedule=cfg.alpha_schedule,
+            codewords_per_block=cfg.codewords_per_block,
         )
         state = res.state
         newly = res.tb_ok & ~success

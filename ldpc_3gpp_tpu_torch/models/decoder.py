@@ -187,6 +187,7 @@ def decode_transport_block(
     schedule: str = "flooding",
     message_dtype: str = "float32",
     alpha_schedule=None,
+    codewords_per_block: int = 0,
 ) -> TBDecodeResult:
     """Full decode chain for one (re)transmission of (..., G) channel LLRs.
 
@@ -201,6 +202,7 @@ def decode_transport_block(
         early_termination=early_termination, backend=backend,
         schedule=schedule, message_dtype=message_dtype,
         alpha_schedule=alpha_schedule,
+        codewords_per_block=codewords_per_block,
     )
 
 
@@ -218,6 +220,7 @@ def decode_transport_block_d(
     schedule: str = "flooding",
     message_dtype: str = "float32",
     alpha_schedule=None,
+    codewords_per_block: int = 0,
 ) -> TBDecodeResult:
     """``decode_transport_block`` from the (..., C, N) circular-buffer LLRs.
 
@@ -278,6 +281,15 @@ def decode_transport_block_d(
                 f"backend {backend!r} is f32-only"
             )
         kw["message_dtype"] = message_dtype
+    if codewords_per_block:
+        # several small-Z codewords per block (decoder_cuda.decode): 0 lets
+        # the wrapper choose, an explicit value is the caller's
+        if backend not in ("cuda", "auto"):
+            raise ValueError(
+                f"codewords_per_block={codewords_per_block} is a knob of the "
+                f"kernels; backend {backend!r} has no blocks"
+            )
+        kw["codewords_per_block"] = int(codewords_per_block)
 
     # Rebuild the full codeword LLRs: 2Z punctured zeros + d, fillers pinned
     # to +FILLER_LLR (known zero bits; NRLDPCDecoder.m:262-264).  When the
@@ -296,10 +308,14 @@ def decode_transport_block_d(
         dec_llr = torch.cat([zeros2z, d_tilde], dim=-1)
         if Kp < K:
             dec_llr[..., Kp:K] = FILLER_LLR
-        if backend == "fast":
-            res = _bp_decode_fast(params, dec_llr, **kw)
-        else:
+        if engaged:
             res = decoder_cuda.decode(params, dec_llr, **kw)
+        else:
+            # backend 'fast', or 'auto' for a code the kernels do not take
+            # knobs of the kernels, not semantics
+            kw.pop("message_dtype", None)
+            kw.pop("codewords_per_block", None)
+            res = _bp_decode_fast(params, dec_llr, **kw)
     c_hat = res.bits  # (..., C, num_cols*Z), or (..., C, K) from the fused path
 
     # Section 5.2.2 inverse: CB CRC gate (only exists when C > 1,

@@ -14,8 +14,12 @@ Ported variants of the TPU kernel: both schedules with all three check rules
 ``layer_order``, ``alpha_schedule``, and ``message_dtype`` 'float32' or (for
 the min-sum family) 'bfloat16'.  The rule family and the message type are
 compile-time instantiations; everything else is a run-time argument of one
-binary per schedule that serves every base graph and lifting size.  Still to
-port (ROADMAP.md queue B): several small-Z codewords per block.
+binary per schedule that serves every base graph and lifting size.
+
+Several small-Z codewords per block (the counterpart of the TPU kernel's
+``lane_pack``): ``codewords_per_block`` = 0 chooses by
+``auto_codewords_per_block``, 1 runs one block per codeword, P > 1 runs the
+packed kernel of the schedule.  Packing changes no result.
 """
 from __future__ import annotations
 
@@ -47,18 +51,26 @@ SCHEDULES = ("layered", "flooding")
 # Kernel (source stem in csrc/) of each schedule.
 KERNEL_NAMES = {"layered": "ldpc_layered", "flooding": "ldpc_flooding"}
 
-# Number of launches of each kernel made by ``decode`` in this process.
+# Number of launches of each kernel made by ``decode`` in this process, and
+# the same split by the codewords per block each launch used:
+# LAUNCHES_BY_P[(kernel, P)].
 LAUNCHES = {name: 0 for name in KERNEL_NAMES.values()}
+LAUNCHES_BY_P = {}
 
 # Argument types of ``ldpc_layered_decode`` and ``ldpc_flooding_decode``:
-# seven pointers (llr, bits, ok, iters, c2v, edges, row_start), thirteen ints
+# seven pointers (llr, bits, ok, iters, c2v, edges, row_start), fourteen ints
 # (ncw, Z, nc, nr, E, out_cols, d_input, fill_lo, fill_hi, iterations,
-# early_termination, rule, bf16_messages), alpha, beta, alpha0, n0 and the
-# stream.
+# early_termination, rule, bf16_messages, codewords_per_block), alpha, beta,
+# alpha0, n0 and the stream.
 DECODE_ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
     + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
+
+# Limits of one block (MAX_THREADS in csrc/ldpc_bp.cuh; the dynamic shared
+# memory a block of an H100 may opt in to).
+MAX_BLOCK_THREADS = 384
+MAX_BLOCK_SHARED_BYTES = 232_448
 
 # Argument types of the test entry ``ldpc_phi``: x, y, n, stream.
 PHI_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -71,12 +83,87 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_P.clear()
 
 
 def supports(params: LDPCParams) -> bool:
-    """Whether the kernels take this code: every TS38.212 lifting size fits
-    one block (Z <= 384).  Routing very small Z elsewhere is undecided."""
-    return params.Z_c <= 384
+    """Whether backend 'auto' sends this code to the kernels: every TS38.212
+    lifting size fits one block (Z <= 384), and with several codewords per
+    block the kernels beat the plain decoders on an H100 down to Z = 2
+    (PERF.md, routing table), so no small Z is routed elsewhere."""
+    return params.Z_c <= MAX_BLOCK_THREADS
+
+
+def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1) -> int:
+    """Dynamic shared memory of one block of ``P`` codewords: the formula of
+    ``ldpc_*_shared_bytes`` in the CUDA sources (totals, and for flooding
+    the column sums, per codeword; edge table; row offsets; P > 1: a flag
+    word per codeword)."""
+    sets = 2 if schedule == "flooding" else 1
+    state = -(-(sets * P * nc * Z * 4) // 16) * 16
+    return state + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
+
+
+def _fits(schedule: str, params: LDPCParams, P: int) -> bool:
+    E = len(params.edges[0])
+    return (
+        -(-(P * params.Z_c) // 32) * 32 <= MAX_BLOCK_THREADS
+        and shared_bytes(schedule, params.Z_c, params.num_cols,
+                         params.num_rows, E, P) <= MAX_BLOCK_SHARED_BYTES
+    )
+
+
+# The automatic choice of codewords per block, from the small-Z tables measured
+# on an H100 (PERF.md; tools/small_z.py).  Two cuts, both read off the tables:
+# - PACK_MAX_LANES: a packed block is slower per sweep than a one-codeword
+#   block and lasts as long as its slowest codeword; above 64 lanes per block
+#   packing moved no measured case by more than 12 % either way.
+# - PACK_MIN_BLOCKS: the card holds 18 to 32 small-Z blocks per SM, so a launch
+#   gains only where blocks are left over after packing.  With 1,024 blocks
+#   left, launches lost up to 43 % under early termination with a 50-iteration
+#   budget (the launch lasts as long as its stragglers' blocks); with 4,096
+#   left the worst measured loss is 7 % and the largest gain 2.6 times.
+# The sweeps' default calls (256 to 2,048 codewords) are below the floor and
+# run one codeword per block; an explicit ``codewords_per_block`` packs them.
+PACK_MAX_LANES = 64
+PACK_MIN_BLOCKS = 4096
+PACK_CHOICES = (2, 4, 8, 16)
+
+
+def _warp_fill(lanes: int) -> float:
+    """Share of live lanes in the warps that ``lanes`` threads round up to."""
+    return lanes / (-(-lanes // 32) * 32)
+
+
+def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str) -> int:
+    """Codewords per block for ``n`` codewords of this code: the largest of
+    ``PACK_CHOICES`` that keeps P*Z within ``PACK_MAX_LANES``, fills the
+    block's warps better than one codeword does, leaves at least
+    ``PACK_MIN_BLOCKS`` blocks and fits a block's threads and shared memory;
+    else 1."""
+    Z = params.Z_c
+    best = 1
+    for P in PACK_CHOICES:
+        if (P * Z <= PACK_MAX_LANES and _warp_fill(P * Z) > _warp_fill(Z)
+                and -(-n // P) >= PACK_MIN_BLOCKS and _fits(schedule, params, P)):
+            best = P
+    return best
+
+
+def resolve_codewords_per_block(params: LDPCParams, n: int, schedule: str,
+                                codewords_per_block: int) -> int:
+    """0 -> the automatic choice; an explicit value is checked against the
+    block's threads and shared memory and raises where it does not fit."""
+    P = int(codewords_per_block)
+    if P == 0:
+        return auto_codewords_per_block(params, n, schedule)
+    if P < 1 or not _fits(schedule, params, P):
+        raise ValueError(
+            f"codewords_per_block={P} does not fit one block at Z={params.Z_c} "
+            f"({schedule}): at most {MAX_BLOCK_THREADS} threads and "
+            f"{MAX_BLOCK_SHARED_BYTES} bytes of shared memory"
+        )
+    return P
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,7 +211,8 @@ def _library(name: str):
     decode_fn.restype = ctypes.c_int
     for fn, argtypes in (("max_degree", []), ("max_z", []),
                          ("max_shared_bytes", []),
-                         ("shared_bytes", [ctypes.c_int] * 4)):
+                         ("shared_bytes", [ctypes.c_int] * 5),
+                         ("blocks_per_sm", [ctypes.c_int] * 7)):
         f = getattr(lib, f"{name}_{fn}")
         f.argtypes = argtypes
         f.restype = ctypes.c_int
@@ -132,6 +220,23 @@ def _library(name: str):
         lib.ldpc_phi.argtypes = PHI_ARGTYPES
         lib.ldpc_phi.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm(params: LDPCParams, schedule: str = "layered",
+                  algorithm: str = "min-sum", message_dtype: str = "float32",
+                  codewords_per_block: int = 1) -> int:
+    """Blocks of the kernel that ``decode`` would launch for these arguments
+    that one SM of the current CUDA device holds at a time (the occupancy
+    the CUDA runtime reports for the built kernel)."""
+    name = KERNEL_NAMES[schedule]
+    dtype = resolve_message_dtype(message_dtype, algorithm)
+    n = getattr(_library(name), name + "_blocks_per_sm")(
+        _RULE_CODES[algorithm], int(dtype == torch.bfloat16),
+        int(codewords_per_block), params.Z_c, params.num_cols, params.num_rows,
+        len(params.edges[0]))
+    if n < 0:
+        raise RuntimeError(f"{name}_blocks_per_sm failed: CUDA error {-n}")
+    return n
 
 
 def phi_on_device(x: torch.Tensor) -> torch.Tensor:
@@ -202,8 +307,12 @@ def decode_plain(
     channel_format: str = "cw",
     output_format: str = "cw",
     alpha_schedule=None,
+    codewords_per_block: int = 0,
 ) -> DecodeResult:
     """Plain PyTorch version of ``decode`` on the device of ``llr``.
+
+    ``codewords_per_block`` is accepted and ignored: packing changes no
+    result, so this is the plain version of the packed kernels too.
 
     Builds the full codeword LLRs ('d' input: 2Z punctured zeros prepended,
     the filler range of d pinned to ``FILLER_LLR``), runs
@@ -254,6 +363,7 @@ def decode(
     channel_format: str = "cw",
     output_format: str = "cw",
     alpha_schedule=None,
+    codewords_per_block: int = 0,
 ) -> DecodeResult:
     """BP decode of (..., nci*Z) LLRs; CUDA tensors run the kernel.
 
@@ -282,6 +392,12 @@ def decode(
     alpha_schedule=(alpha0, n0) (min-sum only): alpha0 for the first n0
     update sweeps, ``alpha`` after.
 
+    codewords_per_block: 0 (default) packs several small-Z codewords into
+    one block by ``auto_codewords_per_block`` (from Z and the batch: only
+    launches of 8,192 codewords and more are packed); 1 runs one block per
+    codeword; P > 1 asks for P and raises where P*Z exceeds a block's
+    threads or shared memory.  Results do not depend on it.
+
     A CUDA tensor launches the kernel on the current stream without
     synchronising (or raises); a CPU tensor runs ``decode_plain``.  The
     kernels keep the per-edge messages in a scratch tensor of E*Z elements
@@ -290,6 +406,8 @@ def decode(
     dtype, nci, out_cols, alpha_schedule = _check_arguments(
         params, llr, algorithm, schedule, message_dtype, channel_format,
         output_format, alpha_schedule)
+    if codewords_per_block:  # an explicit value must fit, on any device
+        resolve_codewords_per_block(params, 0, schedule, codewords_per_block)
     if not llr.is_cuda:
         return decode_plain(
             params, llr, iterations=iterations, algorithm=algorithm,
@@ -297,6 +415,7 @@ def decode(
             schedule=schedule, message_dtype=message_dtype,
             layer_order=layer_order, channel_format=channel_format,
             output_format=output_format, alpha_schedule=alpha_schedule,
+            codewords_per_block=codewords_per_block,
         )
 
     if iterations < 0:
@@ -316,7 +435,12 @@ def decode(
             f"kernel limits exceeded: row degree {max_deg}, Z={Z}"
         )
     dev = llr.device
-    need = getattr(lib, name + "_shared_bytes")(Z, nc, nr, E)
+    batch_shape = llr.shape[:-1]
+    flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
+    n = flat.shape[0]
+    P = resolve_codewords_per_block(params, n, schedule, codewords_per_block)
+    need = getattr(lib, name + "_shared_bytes")(Z, nc, nr, E, P)
+    assert need == shared_bytes(schedule, Z, nc, nr, E, P)
     with torch.cuda.device(dev):
         have = getattr(lib, name + "_max_shared_bytes")()
     if need > have:
@@ -325,17 +449,14 @@ def decode(
             f"num_cols={nc}, Z={Z}; the device allows {have}"
         )
     edges, row_start = _graph_device(params, row_seq, dev)
-
-    batch_shape = llr.shape[:-1]
-    flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
-    n = flat.shape[0]
     bits = torch.empty((n, out_cols * Z), dtype=torch.int8, device=dev)
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     iters = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         # scratch for the check-to-variable messages; never zero-filled
-        # (sweep 0 does not read it)
-        c2v = torch.empty((n, E, Z), dtype=dtype, device=dev)
+        # (sweep 0 does not read it).  A packed block lays its share out
+        # (E, P*Z), so the last block's share is whole even where n % P != 0.
+        c2v = torch.empty((-(-n // P) * P, E, Z), dtype=dtype, device=dev)
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
         with torch.cuda.device(dev):
@@ -346,12 +467,13 @@ def decode(
                 row_start.data_ptr(), n, Z, nc, nr, E, out_cols,
                 int(channel_format == "d"), lo, hi, int(iterations),
                 int(bool(early_termination)), _RULE_CODES[algorithm],
-                int(dtype == torch.bfloat16),
+                int(dtype == torch.bfloat16), P,
                 float(alpha), float(beta), float(a0), int(n0), stream,
             )
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
+        LAUNCHES_BY_P[(name, P)] = LAUNCHES_BY_P.get((name, P), 0) + 1
     return DecodeResult(
         bits=bits.reshape(batch_shape + (out_cols * Z,)),
         parity_ok=ok.to(torch.bool).reshape(batch_shape),

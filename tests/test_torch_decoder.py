@@ -229,7 +229,7 @@ def test_ctypes_signature_matches_the_cuda_source(schedule):
     with open(os.path.join(kernels_build.CSRC_DIR, name + ".cu")) as f:
         src = f.read()
     assert _c_argument_kinds(src, name + "_decode") == list(t_cuda.DECODE_ARGTYPES)
-    assert _c_argument_kinds(src, name + "_shared_bytes") == [ctypes.c_int] * 4
+    assert _c_argument_kinds(src, name + "_shared_bytes") == [ctypes.c_int] * 5
     for fn in ("max_degree", "max_z", "max_shared_bytes"):
         assert _c_argument_kinds(src, f"{name}_{fn}") == []
     if schedule == "flooding":
@@ -242,7 +242,8 @@ def test_ctypes_signature_matches_the_cuda_source(schedule):
         assert re.search(r"#define %s %d\b" % (macro, code), header), rule
     assert "-fmad=false" in kernels_build.NVCC_FLAGS
     assert "--use_fast_math" not in kernels_build.NVCC_FLAGS
-    assert kernels_build.kernel_names() == sorted(t_cuda.KERNEL_NAMES.values())
+    assert kernels_build.kernel_names() == sorted(
+        [*t_cuda.KERNEL_NAMES.values(), "op_rates"])
     assert set(t_cuda.LAUNCHES) == set(t_cuda.KERNEL_NAMES.values())
     assert "arch=compute_90a,code=sm_90a" in kernels_build.NVCC_FLAGS
 

@@ -27,6 +27,7 @@ EXPECTED_MODULES = {
     "ops.decoder", "ops.decoder_fast", "ops.decoder_layered", "ops.decoder_cuda",
     "models.encoder", "models.decoder", "models.chain",
     "utils.rng", "utils.device",
+    "parallel.montecarlo", "parallel.sweep", "tools.op_rates", "tools.small_z",
 }
 
 
@@ -59,7 +60,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 
 def _python_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "time_kernels.py")]
     for base, _, names in os.walk(PKG):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     return files
@@ -79,7 +80,7 @@ def test_sources_name_no_jax_import():
 
 def test_spec_data_and_kernel_source_ship_with_the_package():
     assert os.path.exists(os.path.join(PKG, "spec", "base_graphs.npz"))
-    for name in ("ldpc_layered.cu", "ldpc_flooding.cu", "ldpc_bp.cuh"):
+    for name in ("ldpc_layered.cu", "ldpc_flooding.cu", "ldpc_bp.cuh", "op_rates.cu"):
         assert os.path.exists(os.path.join(PKG, "csrc", name)), name
 
 

@@ -156,19 +156,21 @@ def test_demodulate_and_planes(modulation, method, var_kind):
 
 
 def test_unported_modulations_raise():
+    """What used to raise as unported now runs (the QAMs, method 'hard');
+    unknown names raise ``ValueError`` as in the JAX package."""
     bits = torch.zeros(2, 24, dtype=torch.uint8)
     y = torch.zeros(2, 6, dtype=torch.complex64)
     for modulation in ("16QAM", "64QAM", "256QAM"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_mod.modulate(bits, modulation)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_mod.demodulate(y, modulation, 0.5)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_mod.demodulate_planes(y, modulation, 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_mod.demodulate(y, "QPSK", 0.5, "hard")
+        qm = t_mod.Q_M[modulation]
+        assert t_mod.modulate(bits, modulation).shape == (2, 24 // qm)
+        assert t_mod.demodulate(y, modulation, 0.5).shape == (2, 6 * qm)
+        assert t_mod.demodulate_planes(y, modulation, 0.5).shape == (2, qm, 6)
+    hard = t_mod.demodulate(y + 1, "QPSK", 0.5, "hard")
+    assert (hard == torch.finfo(torch.float32).max).all()
     with pytest.raises(ValueError):
         t_mod.demodulate(y, "QPSK", 0.5, "nonsense")
+    with pytest.raises(ValueError):
+        t_mod.modulate(bits, "8PSK")
 
 
 def test_esn0_to_variance():
