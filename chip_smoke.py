@@ -116,6 +116,29 @@ SNR_VS_A_GOLDEN = "SNR_vs_A_BG1_R13_QPSK_50it_sumproduct.json"
 # 0.1 dB.  0.15 dB holds both and is a sixth of the spread over A (0.58 dB).
 SNR_VS_A_TOLERANCE_DB = 0.15
 PACKED_ZS = (2, 3, 5, 8, 13, 20, 36, 48, 96, 144, 208)
+# The one-codeword flooding kernel at the edges of its layouts (one block
+# per codeword up to BG2 Z=224 and BG1 Z=144, a cluster of 2 or 3 blocks
+# above), at Z = 2 and at Z = 384 of both base graphs: (base graph, Z,
+# message dtype of the min-sum family).  LAYOUT_EDGE_CODEWORDS per case: two
+# per SM.
+LAYOUT_EDGES = (
+    (2, 224, "float32"), (2, 240, "float32"), (1, 144, "float32"), (1, 160, "float32"),
+    (2, 352, "bfloat16"), (2, 384, "bfloat16"), (1, 240, "bfloat16"), (1, 256, "bfloat16"),
+    (1, 2, "float32"), (1, 384, "float32"), (2, 384, "float32"),
+)
+LAYOUT_EDGE_CODEWORDS = 264
+# snr_vs_a's launches at both ends of its range (BG1 R=1/3 QPSK, 256
+# codewords per call, 50 iterations), near each A's required Es/N0 (golden:
+# -1.610 dB at A=8000, -1.015 dB at A=1000): row name -> (fields, Es/N0).
+SWEEP_ROWS = {
+    "V3-SP-sweep": (dict(BG=1, A=8000, G=24000, Q_m=2), -1.6),
+    "V3-SP-sweep-A1000": (dict(BG=1, A=1000, G=3000, Q_m=2), -1.0),
+}
+SWEEP_BATCH = 256
+SWEEP_ITERATIONS = 50
+# the budget at which the cluster kernel's sum-product row is held to its
+# plain version at the A=8000 row's shape
+CLUSTER_SP_ITERATIONS = 4
 
 
 def emit(obj) -> None:
@@ -190,6 +213,25 @@ def codeword_llrs(params, d):
     return cw
 
 
+def case_variant(variant, params, n, kw, sms):
+    """The row of the ``kernels`` line a compared case counts for.  A
+    one-codeword flooding launch in a cluster layout (``launch_shape``'s
+    layout 2 or 3) runs ``ldpc_flooding_cluster_kernel``, a __global__ of its
+    own with a row per instantiation: sum-product, the min-sum family with
+    float32 messages, and with bfloat16 messages."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    if kw.get("schedule") != "flooding":
+        return variant
+    shape = decoder_cuda.launch_shape(
+        params, n, "flooding", kw.get("codewords_per_block", 0), sms)
+    if shape["layout"] < 2:
+        return variant
+    if kw.get("algorithm", "min-sum") == "sum-product":
+        return "V3-SP-cluster"
+    return "V6-flooding-cluster" if kw.get("message_dtype") == "bfloat16" else "V3-NMS-cluster"
+
+
 class Tally:
     """Cases compared and the worst difference, per kernel variant."""
 
@@ -217,8 +259,11 @@ def phase_kernel_vs_plain(dev, tally):
     never-converging and ``iterations=0`` inputs, 'd'/'sys' and 'cw'."""
     from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def check(variant, params, llr, **kw):
-        tally.add(variant, compare_case(params, llr, **kw))
+        n = llr.numel() // llr.shape[-1]
+        tally.add(case_variant(variant, params, n, kw, sms), compare_case(params, llr, **kw))
 
     ds = dict(channel_format="d", output_format="sys")
     v1 = dict(algorithm="min-sum", **ds)
@@ -281,6 +326,91 @@ def phase_kernel_vs_plain(dev, tally):
           schedule="flooding", iterations=P2_ITERATIONS, **ds)
     check("V6-layered", params, mid[:, 0], algorithm="min-sum",
           message_dtype="bfloat16", iterations=ITERATIONS, **ds)
+    return phase_layout_edges(dev, check), phase_config1_launch(dev, check)
+
+
+def phase_config1_launch(dev, check):
+    """The one-codeword flooding kernel at config #1's launch as
+    ``bler_vs_snr`` makes it (BG2 A=100 R=1/2, Z=20, CONFIG1_BATCH
+    codewords, 50 iterations), where the block-size rule shares each SM
+    among several smaller blocks: min-sum and offset-min-sum with bfloat16
+    messages and early termination ('d' in, 'sys' out), min-sum with an alpha
+    schedule run to budget ('cw' in and out), sum-product at 8 iterations;
+    half the codewords at 1.0 dB, half at 3.0 dB (sweeps to convergence from
+    0 to the budget).  Raises unless the launch has fewer than
+    FLOODING_MAX_THREADS threads per block and more than one block per SM in
+    every instantiation.  Returns the launch shape."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+
+    params = LDPCParams(**CONFIG1_FIELDS)
+    n = CONFIG1_BATCH
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = decoder_cuda.launch_shape(params, n, "flooding", 0, sms)
+    per_sm = {f"{rule}/{dtype}": decoder_cuda.blocks_per_sm(
+        params, "flooding", rule, dtype, 1, n)
+        for rule, dtype in (("min-sum", "float32"), ("offset-min-sum", "bfloat16"),
+                            ("sum-product", "float32"))}
+    if (shape["codewords_per_block"] != 1
+            or shape["threads"] >= decoder_cuda.FLOODING_MAX_THREADS
+            or min(per_sm.values()) < 2):
+        raise AssertionError(f"config #1's launch is not a shared-SM shape: {shape} {per_sm}")
+    d = torch.cat([noisy_d_tilde(params, "QPSK", db, n // 2, 14 + i, dev)[0][:, 0]
+                   for i, db in enumerate((1.0, 3.0))])
+    ds = dict(schedule="flooding", channel_format="d", output_format="sys")
+    check("V3-NMS", params, d, algorithm="min-sum", iterations=50, **ds)
+    check("V6-flooding", params, d, algorithm="offset-min-sum", message_dtype="bfloat16",
+          iterations=50, **ds)
+    check("V4-flooding", params, codeword_llrs(params, d), schedule="flooding",
+          algorithm="min-sum", alpha_schedule=(0.65, 2), iterations=20,
+          early_termination=False)
+    check("V3-SP", params, d, algorithm="sum-product", iterations=P2_ITERATIONS, **ds)
+    return dict(codewords=n, blocks_per_sm=per_sm, **shape)
+
+
+def phase_layout_edges(dev, check):
+    """The one-codeword flooding kernel at every edge of its layouts
+    (LAYOUT_EDGES): per shape the three rules with early termination ('d'
+    in, 'sys' out; min-sum with an alpha schedule) and run to budget ('cw'
+    in and out), on codewords that pass at once, never pass and pass after a
+    few sweeps.  Sum-product has float32 messages only, so at the shapes
+    listed for bfloat16 it is the float32 case of a neighbouring shape's
+    layout and is left out (its plain version costs seconds per sweep).
+    Returns the launch shape of every base graph and Z."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.tools.small_z import noisy_llrs, params_for_z
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ds = dict(channel_format="d", output_format="sys", schedule="flooding")
+    fl = dict(schedule="flooding", early_termination=False)
+    shapes = []
+    # BG1 Z=384 as snr_vs_a runs it at A=8000: 424 fillers in a cluster
+    sweep = LDPCParams(**SWEEP_ROWS["V3-SP-sweep"][0])
+    for bg, Z, dtype in LAYOUT_EDGES:
+        params = sweep if (bg, Z) == (sweep.BG, sweep.Z_c) else params_for_z(bg, Z)
+        n = LAYOUT_EDGE_CODEWORDS
+        third = n // 3
+        d = torch.cat([noisy_llrs(params, third, 6.0, 50 + Z, dev),
+                       noisy_llrs(params, third, -8.0, 51 + Z, dev),
+                       noisy_llrs(params, n - 2 * third, 0.0, 52 + Z, dev)])
+        cw = codeword_llrs(params, d)
+        family = "V6-flooding" if dtype == "bfloat16" else None
+        if family is None:
+            check("V3-SP", params, d, algorithm="sum-product", iterations=3, **ds)
+            check("V4-flooding", params, cw, algorithm="sum-product", iterations=2, **fl)
+        for rule, tag, extra in (("min-sum", "V3-NMS", dict(alpha_schedule=(0.65, 2))),
+                                 ("offset-min-sum", "V3-OMS", {})):
+            check(family or tag, params, d, algorithm=rule, iterations=5,
+                  message_dtype=dtype, **extra, **ds)
+            check(family or "V4-flooding", params, cw, algorithm=rule, iterations=3,
+                  message_dtype=dtype, **fl)
+        shapes.append(dict(bg=bg, Z=Z, message_dtype=dtype, codewords=n,
+                           **decoder_cuda.launch_shape(params, n, "flooding", 0, sms)))
+    layouts = {r["layout"] for r in shapes}  # one block, clusters of 2 and 3
+    if layouts != {1, 2, 3}:
+        raise AssertionError(f"the layout edges miss a layout or block size: {shapes}")
+    return shapes
 
 
 class Stopwatch:
@@ -400,7 +530,8 @@ def phase_lifting_sweep(dev):
     torch.cuda.synchronize()
     out = dict(configs=configs, golden_configs=golden["configs_run"],
                lifting_sizes=len(zs), block_errors=failures,
-               launches=dict(decoder_cuda.LAUNCHES), launches_by_P=launches_by_p())
+               launches=dict(decoder_cuda.LAUNCHES), launches_by_P=launches_by_p(),
+               cluster_launches=cluster_launches())
     if (failures or configs != golden["configs_run"]
             or out["launches"] != {"ldpc_layered": 0, "ldpc_flooding": configs}):
         raise AssertionError(f"lifting sweep: {out}")
@@ -411,7 +542,16 @@ def launches_by_p():
     """``decoder_cuda.LAUNCHES_BY_P`` with printable keys."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
 
-    return {f"{k}/P={p}": n for (k, p), n in sorted(decoder_cuda.LAUNCHES_BY_P.items())}
+    return {f"{k}/P={p}/layout={l}": n
+            for (k, p, l), n in sorted(decoder_cuda.LAUNCHES_BY_P.items())}
+
+
+def cluster_launches():
+    """Launches of the flooding cluster kernel (layout 2 or 3) since the
+    counts were last set to 0."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    return sum(n for (_, _, layout), n in decoder_cuda.LAUNCHES_BY_P.items() if layout >= 2)
 
 
 def two_sample_gate(name, esn0_db, blocks, errors, golden_blocks, golden_errors):
@@ -473,9 +613,10 @@ def phase_path_5(dev):
             max_abs_diff_db=worst, tolerance_db=SNR_VS_A_TOLERANCE_DB,
             results_file=os.path.basename(fname), seconds=seconds, blocks=blocks,
             blocks_per_s=blocks / seconds, launches=launches,
-            launches_by_P=launches_by_p())
+            launches_by_P=launches_by_p(), cluster_launches=cluster_launches())
         if ([a for a, _ in points] != golden_a["A"] or worst > SNR_VS_A_TOLERANCE_DB
-                or launches["ldpc_flooding"] < 1 or launches["ldpc_layered"]):
+                or launches["ldpc_flooding"] < 1 or launches["ldpc_layered"]
+                or out["snr_vs_a"]["cluster_launches"] < 1):
             raise AssertionError(f"snr_vs_a outside its gate: {out['snr_vs_a']}")
 
         torch.cuda.synchronize()
@@ -505,7 +646,7 @@ def phase_path_5(dev):
                 "P5/config1", pt.esn0_db, pt.blocks, pt.block_errors, g_blocks,
                 round(golden_1["bler"][i] * g_blocks)))
         blocks = sum(pt.blocks for pt in pts)
-        packed = sum(n for (k, p), n in by_p.items() if p > 1)
+        packed = sum(n for (_, p, _), n in by_p.items() if p > 1)
         out["bler_vs_snr"] = dict(
             points=gates, results_file=os.path.basename(fname), seconds=seconds,
             blocks=blocks, blocks_per_s=blocks / seconds, launches=launches,
@@ -539,10 +680,10 @@ def phase_path_5(dev):
             blocks=sum(pt.blocks for pt in packed_pts),
             blocks_per_s=sum(pt.blocks for pt in packed_pts) / seconds, launches=launches,
             launches_by_P=launches_by_p(),
-            packed_launches=by_p.get(("ldpc_flooding", CONFIG1_PACK), 0))
+            packed_launches=by_p.get(("ldpc_flooding", CONFIG1_PACK, 0), 0))
         if (differing or len(packed_pts) != len(pts) or packed_text != text
                 or launches != out["bler_vs_snr"]["launches"]
-                or by_p != {("ldpc_flooding", CONFIG1_PACK): launches["ldpc_flooding"]}):
+                or by_p != {("ldpc_flooding", CONFIG1_PACK, 0): launches["ldpc_flooding"]}):
             raise AssertionError(
                 f"packed sweep differs from the one-codeword sweep: "
                 f"{out['bler_vs_snr_explicit_P']}")
@@ -851,14 +992,15 @@ def phase_variant_steps(generator, dev):
         expect_launches(n, kernel, 1)
         out[variant] = dict(launches=n[kernel], blocks=blocks, block_errors=errors,
                             launches_by_P=launches_by_p())
-        packed = any(p > 1 for (_, p) in decoder_cuda.LAUNCHES_BY_P)
+        packed = any(p > 1 for (_, p, _) in decoder_cuda.LAUNCHES_BY_P)
         if packed != variant.startswith("V7"):
             raise AssertionError(f"{variant}: unexpected codewords per block: {out[variant]}")
     return out
 
 
 def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered",
-                 algorithm="min-sum", early_termination=True, message_bytes=4):
+                 algorithm="min-sum", early_termination=True, message_bytes=4,
+                 shape=None):
     """Least time (ms) the card could take for this run's decodes.
 
     Bytes: each input LLR read once, each output bit and flag written once.
@@ -869,7 +1011,17 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
     update sweeps, one that never passed the budget and one syndrome pass.
     Flooding with early termination: ``it`` update sweeps and ``it + 1``
     syndrome passes (the budget and budget + 1 if it never passed).  A run
-    to budget: the budget and one syndrome pass."""
+    to budget: the budget and one syndrome pass.
+
+    Beside the bound, the work of the kernel's own design for
+    ``measured_rate``; ``shape`` is ``decoder_cuda.launch_shape``'s record.
+    Layered and packed flooding: one message write per update sweep and one
+    read per update sweep after the first, in the scratch.  One-codeword
+    flooding: a message phase per update sweep plus the one whose vote stops
+    the codeword (its messages are discarded), a parity-only pass where the
+    budget is reached; messages in shared memory (the block's or the
+    cluster's), written by the message phase and read by the column phase and
+    by the next message phase."""
     n = res.iterations.numel()
     Z, E = params.Z_c, len(params.edges[0])
     used = res.iterations.to(torch.int64).reshape(-1)
@@ -891,19 +1043,35 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
                    + OPS_PER_EDGE_LANE_SYNDROME * total_syndromes)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
-    # the scratch traffic of this design (one message write per update
-    # sweep, one read per update sweep after the first), for PERF.md; not
-    # part of the bound
-    scratch = E * Z * message_bytes * int((2 * updates - (updates > 0).to(torch.int64)).sum())
+    reads = updates - (updates > 0).to(torch.int64)  # sweep 0 reads no message
+    if schedule == "flooding" and shape is not None and shape["codewords_per_block"] == 1:
+        # message phases: the updates, and the discarded one of a codeword
+        # whose vote passed before the budget
+        stopped = passed & (used < budget) if early_termination else torch.zeros_like(passed)
+        phases = int((updates + stopped.to(torch.int64)).sum())
+        parity_only = int((~stopped).sum())
+        # per edge and lane, all in shared memory (a cluster's included): a
+        # rotated total read per phase, the message read (after sweep 0) and
+        # write of a message phase, and the column phase's message read
+        shared = E * Z * (2 * phases + parity_only + int(reads.sum()) + total_updates)
+        work = dict(update_edge_lanes=E * Z * phases,
+                    syndrome_edge_lanes=E * Z * parity_only,
+                    shared_accesses=shared, scratch_bytes=0)
+    else:
+        work = dict(update_edge_lanes=E * Z * total_updates,
+                    syndrome_edge_lanes=E * Z * total_syndromes,
+                    # an update reads and writes a total, a syndrome pass reads
+                    shared_accesses=E * Z * (2 * total_updates + total_syndromes),
+                    scratch_bytes=E * Z * message_bytes * int((updates + reads).sum()))
     return dict(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes_ms=t_bytes, operations_ms=t_ops,
         mean_sweeps=total_updates / n,
-        scratch_traffic_ms=scratch / PEAK_BYTES_PER_S * 1e3,
-        # the work itself, for ``measured_rate``
-        update_edge_lanes=E * Z * total_updates,
-        syndrome_edge_lanes=E * Z * total_syndromes, scratch_bytes=scratch,
+        # the device-memory traffic of this design, for PERF.md; not part of
+        # the bound
+        scratch_traffic_ms=work["scratch_bytes"] / PEAK_BYTES_PER_S * 1e3,
+        **work,
     )
 
 
@@ -919,17 +1087,16 @@ OP_MIX = {
 def measured_rate(work, rates, algorithm):
     """Time (ms) the same work takes at the rates the op-rate microbenchmark
     measured in this kernel's block shape: the arithmetic by class (classes
-    share the instruction slots, so their times add), the totals' shared-memory
-    accesses (an update touches an edge and lane with one rotated read and one
-    write, which is one rotation; a syndrome pass only reads: half), and the
-    scratch traffic at the scratch stream's rate.  The three overlap at best,
-    so ``measured_rate_ms`` is the largest; their sum is given too."""
+    share the instruction slots, so their times add), the shared-memory
+    accesses of the design (``kernel_bound``; a rotation is one rotated read
+    and one write, two accesses), and the scratch traffic at the scratch
+    stream's rate.  The three overlap at best, so ``measured_rate_ms`` is the
+    largest; their sum is given too."""
     mix = OP_MIX["sum-product" if algorithm == "sum-product" else "min-sum"]
     alu = sum(work["update_edge_lanes"] * count / rates[c]["operations_per_s"]
               for c, count in mix.items())
     alu += work["syndrome_edge_lanes"] / rates["bitops"]["operations_per_s"]
-    shared = ((work["update_edge_lanes"] + 0.5 * work["syndrome_edge_lanes"])
-              / rates["rotate"]["operations_per_s"])
+    shared = 0.5 * work["shared_accesses"] / rates["rotate"]["operations_per_s"]
     scratch = work["scratch_bytes"] / rates["scratch"]["bytes_per_s"]
     parts = dict(arithmetic_ms=alu * 1e3, shared_memory_ms=shared * 1e3,
                  scratch_ms=scratch * 1e3)
@@ -937,20 +1104,28 @@ def measured_rate(work, rates, algorithm):
                 measured_rate_sum_ms=sum(parts.values()), **parts)
 
 
-def measure_variant(params, llr, reps, **kw):
+def measure_variant(params, llr, reps, plain=True, **kw):
     """One kernel variant at its path's shape: time by CUDA events, the
-    plain version's time (one run), equality with it, and the bound."""
+    plain version's time (one run) and equality with it (with ``plain``),
+    the bound and the launch shape."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
 
     res = decoder_cuda.decode(params, llr, **kw)
     ms = time_ms(lambda: decoder_cuda.decode(params, llr, **kw), reps=reps)
     holder = {}
 
-    def plain():
+    def run_plain():
         holder["res"] = decoder_cuda.decode_plain(params, llr, **kw)
 
-    plain_ms = time_ms(plain, reps=1, warmup=0)
-    diff = require_equal(res, holder["res"], kw)
+    plain_ms = diff = None
+    if plain:
+        plain_ms = time_ms(run_plain, reps=1, warmup=0)
+        diff = require_equal(res, holder["res"], kw)
+    n = res.iterations.numel()
+    schedule = kw.get("schedule", "layered")
+    launch = decoder_cuda.launch_shape(
+        params, n, schedule, kw.get("codewords_per_block", 0),
+        torch.cuda.get_device_properties(llr.device).multi_processor_count)
     nc = params.num_cols
     bound = kernel_bound(
         params, res, kw["iterations"],
@@ -960,16 +1135,13 @@ def measure_variant(params, llr, reps, **kw):
         algorithm=kw.get("algorithm", "min-sum"),
         early_termination=kw.get("early_termination", True),
         message_bytes=2 if kw.get("message_dtype") == "bfloat16" else 4,
+        shape=launch,
     )
-    n = res.iterations.numel()
-    P = decoder_cuda.resolve_codewords_per_block(
-        params, n, kw.get("schedule", "layered"), kw.get("codewords_per_block", 0))
     shape = dict(
-        Z=params.Z_c, E=len(params.edges[0]), codewords_per_block=P,
-        threads=-(-(P * params.Z_c) // 32) * 32,
+        Z=params.Z_c, E=len(params.edges[0]), **launch,
         blocks_per_sm=decoder_cuda.blocks_per_sm(
-            params, kw.get("schedule", "layered"), kw.get("algorithm", "min-sum"),
-            kw.get("message_dtype", "float32"), P))
+            params, schedule, kw.get("algorithm", "min-sum"),
+            kw.get("message_dtype", "float32"), launch["codewords_per_block"], n))
     return dict(ms=ms, us_per_codeword=ms * 1e3 / n, plain_ms=plain_ms,
                 max_abs_diff=diff, codewords=n, algorithm=kw.get("algorithm", "min-sum"),
                 **shape, **bound)
@@ -1007,9 +1179,14 @@ def phase_op_rates(dev, times):
     op_rates.reset_launches()
     by_shape = {}
     for variant, m in times.items():
-        # a packed block's lanes form one run of P*Z, as one codeword's Z do
-        key = (m["threads"], m["Z"] * m["codewords_per_block"], m["E"],
-               m["blocks_per_sm"])
+        # a packed block's lanes form one run of P*Z, as one codeword's Z do;
+        # a one-codeword flooding block wider than K2's MAX_THREADS is taken
+        # as blocks of MAX_THREADS with as many threads per SM
+        threads, per_sm = m["threads"], m["blocks_per_sm"]
+        if threads > op_rates.MAX_THREADS:
+            threads, per_sm = (op_rates.MAX_THREADS,
+                               max(1, threads * per_sm // op_rates.MAX_THREADS))
+        key = (threads, m["Z"] * m["codewords_per_block"], m["E"], per_sm)
         if key not in by_shape:
             by_shape[key] = op_rates.rates(*key, dev)
         m.update(measured_rate(m, by_shape[key], m["algorithm"]))
@@ -1143,6 +1320,44 @@ def step_times(cfg, generator, esn0_db, dev):
     }
 
 
+def sweep_call_profile(dev, calls=5):
+    """One ``snr_vs_a`` call as the sweep makes it at A=8000 near its
+    required Es/N0 (``MonteCarlo.run`` of SWEEP_BATCH blocks, one fetch):
+    host ms per call, and from ``torch.profiler`` the device busy and idle
+    share and the flooding kernel's ms per call."""
+    from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
+    from ldpc_3gpp_tpu_torch.parallel.sweep import _make_config
+    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+
+    fields, esn0_db = SWEEP_ROWS["V3-SP-sweep"]
+    cfg = _make_config(fields["A"], 1 / 3, fields["BG"], "QPSK", (0,),
+                       SWEEP_ITERATIONS, "sum-product")
+    assert cfg.params.Z_c == 384 and cfg.params.G == fields["G"]
+    mc = MonteCarlo(cfg, batch_per_device=SWEEP_BATCH, steps_per_call=1, device=dev)
+    generator = make_generator(7, dev)
+
+    def call():
+        return mc.run(generator, esn0_db)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        c = call()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / calls * 1e3
+    prof = profile_steps(call, calls, call_ms)
+    kernel_ms = None
+    if prof["top"] is not None:
+        kernel_ms = sum(r["ms_per_step"] for r in prof["top"]
+                        if "ldpc_flooding" in r["name"])
+    return dict(A=fields["A"], esn0_db=esn0_db, blocks=SWEEP_BATCH,
+                block_errors_last_call=int(c["block_errors"]), host_ms_per_call=call_ms,
+                flooding_kernel_ms_per_call=kernel_ms,
+                kernel_share_of_call=None if kernel_ms is None else kernel_ms / call_ms,
+                profile=prof)
+
+
 def phase_times(generator, dev, card):
     """Every kernel variant at its path's shape, and P1's and P2's steps.
     Returns {variant: measurements}."""
@@ -1182,6 +1397,33 @@ def phase_times(generator, dev, card):
     out["V6-flooding"] = measure_variant(
         p2, d2, 10, algorithm="min-sum", message_dtype="bfloat16", **fl)
     del d2
+
+    # snr_vs_a's launches at both ends of its range: the kernel alone (its
+    # plain version would run 50 sweeps for minutes; these block shapes are
+    # held to it in kernel_vs_plain)
+    for name, (fields, esn0_db) in SWEEP_ROWS.items():
+        ps = LDPCParams(**fields)
+        d, _ = noisy_d_tilde(ps, "QPSK", esn0_db, SWEEP_BATCH, 25, dev)
+        out[name] = measure_variant(ps, d, 10, plain=False, algorithm="sum-product",
+                                    **dict(fl, iterations=SWEEP_ITERATIONS))
+        out[name]["esn0_db"] = esn0_db
+        del d
+
+    # the cluster kernel (a cluster of 3 blocks per codeword) at the A=8000
+    # row's shape, held to its plain version: sum-product at a budget of
+    # CLUSTER_SP_ITERATIONS (its plain version takes seconds per sweep
+    # there), the min-sum family at P2's 8
+    fields, esn0_db = SWEEP_ROWS["V3-SP-sweep"]
+    ps = LDPCParams(**fields)
+    d, _ = noisy_d_tilde(ps, "QPSK", esn0_db, SWEEP_BATCH, 26, dev)
+    out["V3-SP-cluster"] = measure_variant(
+        ps, d, 10, algorithm="sum-product", **dict(fl, iterations=CLUSTER_SP_ITERATIONS))
+    out["V3-NMS-cluster"] = measure_variant(ps, d, 10, algorithm="min-sum", **fl)
+    for name in ("V3-SP-cluster", "V3-NMS-cluster"):
+        if out[name]["layout"] < 2:
+            raise AssertionError(f"{name} did not run in a cluster: {out[name]}")
+        out[name]["esn0_db"] = esn0_db
+    del d
 
     # P3's shape: (1024, 1, N) at 2.0 dB
     p3 = LDPCParams(**P3_FIELDS)
@@ -1237,8 +1479,9 @@ def phase_times(generator, dev, card):
         "kernels": {v: {k: m[k] for k in (
             "ms", "us_per_codeword", "plain_ms", "bound_ms", "bound_by",
             "scratch_traffic_ms", "mean_sweeps", "codewords",
-            "codewords_per_block", "threads", "blocks_per_sm")}
+            "codewords_per_block", "threads", "layout", "blocks_per_sm")}
             for v, m in out.items()},
+        "snr_vs_a_call": sweep_call_profile(dev),
         "V7_ms_one_codeword_per_block": {
             v: out[v]["ms_one_codeword_per_block"] for v in ("V7-flooding", "V7-layered")},
         "kernel_us_per_codeword_at_4x_batch": out["V1"]["us_per_codeword_at_4x_batch"],
@@ -1260,6 +1503,8 @@ VARIANTS = [
     ("V3-SP", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V3-NMS", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V3-OMS", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
+    ("V3-SP-cluster", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
+    ("V3-NMS-cluster", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V4-flooding", FLOODING_SOURCE, TPU_KERNEL + " (:494-500, 549-573)"),
     ("V6-flooding", FLOODING_SOURCE, TPU_KERNEL + " (:480-484, 633-635)"),
     ("V7-layered", LAYERED_SOURCE, TPU_PACKING),
@@ -1295,10 +1540,11 @@ def main() -> int:
           "ptxas": ptxas})
 
     tally = Tally()
-    phase_kernel_vs_plain(dev, tally)
+    edges, config1 = phase_kernel_vs_plain(dev, tally)
     emit({"phase": "kernel_vs_plain", "seconds": watch.lap(), "cases": tally.total,
           "max_abs_diff": tally.max_abs_diff, "tolerance": 0,
-          "cases_by_variant": dict(tally.cases)})
+          "cases_by_variant": dict(tally.cases), "flooding_layout_edges": edges,
+          "config1_launch": config1})
 
     compared, mixes, plain_cases = phase_packed_vs_plain(dev, tally)
     emit({"phase": "packed_vs_plain", "seconds": watch.lap(),
@@ -1359,11 +1605,14 @@ def main() -> int:
     emit({"phase": "variant_steps", "seconds": watch.lap(), "variants": steps})
     launches.update({v: rec["launches"] for v, rec in steps.items()})
 
-    emit({"phase": "lifting_sweep", **phase_lifting_sweep(dev), "seconds": watch.lap()})
+    lifting = phase_lifting_sweep(dev)
+    emit({"phase": "lifting_sweep", **lifting, "seconds": watch.lap()})
+    launches["V3-NMS-cluster"] = lifting["cluster_launches"]
 
     p5 = phase_path_5(dev)
     emit({"phase": "path_5", "seconds": watch.lap(), **p5})
     launches["V7-flooding"] = p5["bler_vs_snr_explicit_P"]["packed_launches"]
+    launches["V3-SP-cluster"] = p5["snr_vs_a"]["cluster_launches"]
 
     qam, qam_launches = phase_qam64_gate(dev)
     emit({"phase": "qam64_gate", "seconds": watch.lap(), "points": qam,

@@ -20,6 +20,14 @@ Several small-Z codewords per block (the counterpart of the TPU kernel's
 ``lane_pack``): ``codewords_per_block`` = 0 chooses by
 ``auto_codewords_per_block``, 1 runs one block per codeword, P > 1 runs the
 packed kernel of the schedule.  Packing changes no result.
+
+The one-codeword flooding kernel runs each sweep as a message phase over
+every (row, lane) item and a column phase over every (column, lane) item,
+with up to 1,024 threads per block and every message in shared memory; the
+wrapper gives it the column plan (``_column_plan``), its block size
+(``flooding_threads``) and its layout (``flooding_layout``: one block per
+codeword where that holds it, else a thread block cluster).  Neither choice
+changes a result.
 """
 from __future__ import annotations
 
@@ -52,25 +60,64 @@ SCHEDULES = ("layered", "flooding")
 KERNEL_NAMES = {"layered": "ldpc_layered", "flooding": "ldpc_flooding"}
 
 # Number of launches of each kernel made by ``decode`` in this process, and
-# the same split by the codewords per block each launch used:
-# LAUNCHES_BY_P[(kernel, P)].
+# the same split by the codewords per block and the layout each launch used
+# (``launch_shape``): LAUNCHES_BY_P[(kernel, P, layout)].  Layout 2 or more
+# is the flooding cluster kernel, a __global__ of its own.
 LAUNCHES = {name: 0 for name in KERNEL_NAMES.values()}
 LAUNCHES_BY_P = {}
 
-# Argument types of ``ldpc_layered_decode`` and ``ldpc_flooding_decode``:
-# seven pointers (llr, bits, ok, iters, c2v, edges, row_start), fourteen ints
-# (ncw, Z, nc, nr, E, out_cols, d_input, fill_lo, fill_hi, iterations,
-# early_termination, rule, bf16_messages, codewords_per_block), alpha, beta,
-# alpha0, n0 and the stream.
+# Argument types of ``ldpc_layered_decode``: seven pointers (llr, bits, ok,
+# iters, c2v, edges, row_start), fourteen ints (ncw, Z, nc, nr, E, out_cols,
+# d_input, fill_lo, fill_hi, iterations, early_termination, rule,
+# bf16_messages, codewords_per_block), alpha, beta, alpha0, n0 and the stream.
 DECODE_ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
     + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
+# ``ldpc_flooding_decode``: the same with the column plan (col_edges,
+# col_start) and the cluster split (splits) after row_start, and the layout,
+# the block size (threads) and the cluster's cols_max and edges_max after
+# codewords_per_block.
+FLOODING_DECODE_ARGTYPES = (
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 18
+    + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+)
+# Argument types of each kernel library's entries (``{name}_{entry}``).
+ARGTYPES = {
+    "ldpc_layered": {
+        "decode": DECODE_ARGTYPES, "max_degree": [], "max_z": [],
+        "max_shared_bytes": [],
+        "shared_bytes": [ctypes.c_int] * 5,  # Z, nc, nr, E, P
+        # rule, bf16_messages, P, Z, nc, nr, E
+        "blocks_per_sm": [ctypes.c_int] * 7,
+    },
+    "ldpc_flooding": {
+        "decode": FLOODING_DECODE_ARGTYPES, "max_degree": [], "max_z": [],
+        "max_shared_bytes": [],
+        # Z, nc, nr, E, P, layout, cols_max, edges_max
+        "shared_bytes": [ctypes.c_int] * 8,
+        # rule, bf16_messages, P, Z, nc, nr, E, layout, threads, cols_max,
+        # edges_max
+        "blocks_per_sm": [ctypes.c_int] * 11,
+    },
+}
 
-# Limits of one block (MAX_THREADS in csrc/ldpc_bp.cuh; the dynamic shared
-# memory a block of an H100 may opt in to).
+# Limits of one block (MAX_THREADS in csrc/ldpc_bp.cuh: the layered and the
+# packed kernels' lanes; FLOODING_MAX_THREADS in csrc/ldpc_flooding.cu; the
+# dynamic shared memory a block of an H100 may opt in to).
 MAX_BLOCK_THREADS = 384
+FLOODING_MAX_THREADS = 1024
 MAX_BLOCK_SHARED_BYTES = 232_448
+# Shared memory of one H100 SM and what the hardware keeps back per block,
+# for the flooding kernel's block size (as in tools/op_rates.py).
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
+# Where a launch keeps its messages: a global scratch (the layered and
+# packed kernels), one block's shared memory (the one-codeword flooding
+# kernel), or (2 to MAX_CLUSTER) the shared memory of a thread block
+# cluster of that many blocks per codeword (three hold BG1 Z=384).
+LAYOUT_SCRATCH, LAYOUT_ON_CHIP = 0, 1
+MAX_CLUSTER = 3
 
 # Argument types of the test entry ``ldpc_phi``: x, y, n, stream.
 PHI_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -94,17 +141,104 @@ def supports(params: LDPCParams) -> bool:
     return params.Z_c <= MAX_BLOCK_THREADS
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1) -> int:
     """Dynamic shared memory of one block of ``P`` codewords: the formula of
-    ``ldpc_*_shared_bytes`` in the CUDA sources (totals, and for flooding
-    the column sums, per codeword; edge table; row offsets; P > 1: a flag
-    word per codeword)."""
+    ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered and packed
+    flooding: totals, and for flooding the column sums, per codeword; edge
+    table; row offsets; P > 1: a flag word per codeword.  One codeword per
+    flooding block: FLOODING_SHARED_BYTES, the totals and the E*Z messages
+    (float32), row and column plans and their offsets (it may exceed what a
+    block has: then ``flooding_layout`` takes a cluster)."""
+    if schedule == "flooding" and P == 1:
+        return _align16((nc + E) * Z * 4) + E * 16 + (nr + nc + 2) * 4
     sets = 2 if schedule == "flooding" else 1
-    state = -(-(sets * P * nc * Z * 4) // 16) * 16
-    return state + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
+    return _align16(sets * P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
+
+
+def flooding_on_chip(params: LDPCParams) -> bool:
+    """Whether totals, all messages and the plans of one codeword fit one
+    block (BG2 Z <= 224, BG1 Z <= 144)."""
+    return shared_bytes("flooding", params.Z_c, params.num_cols, params.num_rows,
+                        len(params.edges[0])) <= MAX_BLOCK_SHARED_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_split(params: LDPCParams, size: int) -> tuple:
+    """How a cluster of ``size`` blocks shares one codeword: contiguous base
+    rows of about E/size edges each (their messages) and contiguous columns
+    of about num_cols/size each (their totals).  Returns (splits int32
+    [row_lo[0..size], col_lo[0..size]], most columns, most edges of a
+    block)."""
+    _, row_start, _ = _graph_plan(params, tuple(range(params.num_rows)))
+    E, nr, nc = int(row_start[-1]), params.num_rows, params.num_cols
+    row_lo = [0]
+    for q in range(1, size):
+        target = q * E / size
+        r = int(np.searchsorted(row_start, target))
+        if r > 0 and target - row_start[r - 1] <= row_start[r] - target:
+            r -= 1
+        row_lo.append(min(max(r, row_lo[-1] + 1), nr - (size - q)))
+    row_lo.append(nr)
+    col_lo = [round(q * nc / size) for q in range(size + 1)]
+    edges = [int(row_start[row_lo[q + 1]] - row_start[row_lo[q]]) for q in range(size)]
+    return (np.asarray(row_lo + col_lo, dtype=np.int32),
+            max(np.diff(col_lo).tolist()), max(edges))
+
+
+def flooding_shared_bytes(params: LDPCParams, layout: int) -> int:
+    """Dynamic shared memory of one block of the one-codeword flooding
+    kernel in ``layout``: FLOODING_SHARED_BYTES, or for a cluster
+    FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu."""
+    Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    if layout >= 2:
+        _, cols_max, edges_max = _cluster_split(params, layout)
+        return (_align16(cols_max * Z * 4) + _align16(edges_max * Z * 4) + E * 16
+                + (nr + nc + 2) * 4 + 64)
+    return shared_bytes("flooding", Z, nc, nr, E)
+
+
+def flooding_layout(params: LDPCParams) -> int:
+    """The layout rule of the one-codeword flooding kernel, on shape: one
+    block per codeword where it holds totals, messages and plans
+    (``flooding_on_chip``); above that a thread block cluster of the fewest
+    blocks whose shares fit (2 up to BG1 Z=288 and BG2 Z=384, 3 at BG1
+    Z=320 to 384).  On an H100 the cluster was faster at the sweep's launch
+    than a global scratch for the messages (PERF.md §6)."""
+    if flooding_on_chip(params):
+        return LAYOUT_ON_CHIP
+    for size in range(2, MAX_CLUSTER + 1):
+        if flooding_shared_bytes(params, size) <= MAX_BLOCK_SHARED_BYTES:
+            return size
+    raise ValueError(f"no cluster of up to {MAX_CLUSTER} blocks holds Z={params.Z_c}")
+
+
+def flooding_threads(params: LDPCParams, n: int, layout=None, sms: int = 132) -> int:
+    """Block size of the one-codeword flooding kernel for ``n`` codewords on
+    ``sms`` SMs.  The kernel is held to 64 registers, so an SM runs at most
+    FLOODING_MAX_THREADS of its threads; they are split, in whole warps, over
+    the blocks that share an SM: as many as its shared memory holds, but no
+    more than half the launch's codewords per SM, and never more threads
+    than the column phase has items (num_cols * Z).  A launch whose
+    codewords fit in two rounds lasts as long as its slowest codeword, which
+    then has the SM to itself; a larger launch is faster with the SM shared
+    (``tools/flooding_shapes.py`` on an H100, PERF.md §6)."""
+    if layout is None:
+        layout = flooding_layout(params)
+    size = max(layout, 1)  # blocks per codeword
+    smem = flooding_shared_bytes(params, layout)
+    by_smem = SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES)
+    blocks = max(1, min(by_smem, -(-max(n, 1) * size // (2 * sms))))
+    threads = FLOODING_MAX_THREADS // blocks // 32 * 32
+    return max(32, min(threads, -(-(params.num_cols * params.Z_c) // 32) * 32))
 
 
 def _fits(schedule: str, params: LDPCParams, P: int) -> bool:
+    if schedule == "flooding" and P == 1:
+        return params.Z_c <= MAX_BLOCK_THREADS  # a cluster holds what a block does not
     E = len(params.edges[0])
     return (
         -(-(P * params.Z_c) // 32) * 32 <= MAX_BLOCK_THREADS
@@ -125,6 +259,9 @@ def _fits(schedule: str, params: LDPCParams, P: int) -> bool:
 #   left the worst measured loss is 7 % and the largest gain 2.6 times.
 # The sweeps' default calls (256 to 2,048 codewords) are below the floor and
 # run one codeword per block; an explicit ``codewords_per_block`` packs them.
+# Flooding never packs: its one-codeword kernel deals a codeword's items over
+# the whole block, and in the small-Z tables it beat every P at every Z and
+# batch (PERF.md §6).
 PACK_MAX_LANES = 64
 PACK_MIN_BLOCKS = 4096
 PACK_CHOICES = (2, 4, 8, 16)
@@ -136,13 +273,15 @@ def _warp_fill(lanes: int) -> float:
 
 
 def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str) -> int:
-    """Codewords per block for ``n`` codewords of this code: the largest of
-    ``PACK_CHOICES`` that keeps P*Z within ``PACK_MAX_LANES``, fills the
-    block's warps better than one codeword does, leaves at least
-    ``PACK_MIN_BLOCKS`` blocks and fits a block's threads and shared memory;
-    else 1."""
+    """Codewords per block for ``n`` codewords of this code: 1 for flooding;
+    layered: the largest of ``PACK_CHOICES`` that keeps P*Z within
+    ``PACK_MAX_LANES``, fills the block's warps better than one codeword
+    does, leaves at least ``PACK_MIN_BLOCKS`` blocks and fits a block's
+    threads and shared memory; else 1."""
     Z = params.Z_c
     best = 1
+    if schedule == "flooding":
+        return best
     for P in PACK_CHOICES:
         if (P * Z <= PACK_MAX_LANES and _warp_fill(P * Z) > _warp_fill(Z)
                 and -(-n // P) >= PACK_MIN_BLOCKS and _fits(schedule, params, P)):
@@ -193,6 +332,26 @@ def _graph_plan(params: LDPCParams, row_seq) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def _column_plan(params: LDPCParams) -> tuple:
+    """Numpy column plan of the one-codeword flooding kernel.
+
+    col_edges (E, 2) int32: [slot*Z, shift] of each column's edges in
+    ascending row order, slot = the edge's position in the ascending-row
+    ``_graph_plan`` (where the kernel keeps its messages); col_start (nc+1,)
+    int32 offsets into it.  A column's first entry is its ``first`` edge.
+    """
+    edges, _, _ = _graph_plan(params, tuple(range(params.num_rows)))
+    Z = params.Z_c
+    cols = edges[:, 0] // Z
+    # a stable sort by column keeps each column's edges in row order
+    order = np.argsort(cols, kind="stable")
+    col_edges = np.stack([order * Z, edges[order, 1]], axis=1).astype(np.int32)
+    col_start = np.concatenate(
+        [[0], np.cumsum(np.bincount(cols, minlength=params.num_cols))]).astype(np.int32)
+    return col_edges, col_start
+
+
+@functools.lru_cache(maxsize=None)
 def _graph_device(params: LDPCParams, row_seq, device: torch.device):
     """Device copies of the graph arrays, cached per (params, order, device)."""
     edges, row_start, _ = _graph_plan(params, row_seq)
@@ -203,16 +362,46 @@ def _graph_device(params: LDPCParams, row_seq, device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
+def _flooding_device(params: LDPCParams, layout: int, device: torch.device):
+    """Device copies of what the flooding kernels take beside the row plan:
+    the column plan and the cluster split (a placeholder word without a
+    cluster)."""
+    splits = _cluster_split(params, layout)[0] if layout >= 2 else np.zeros(1, np.int32)
+    return tuple(torch.from_numpy(a).to(device).contiguous()
+                 for a in (*_column_plan(params), splits))
+
+
+def _cluster_sizes(params: LDPCParams, layout: int) -> tuple:
+    """(most columns, most edges) of a block of the layout's cluster, or
+    (0, 0) without one."""
+    return _cluster_split(params, layout)[1:] if layout >= 2 else (0, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_shape(params: LDPCParams, n: int, schedule: str,
+                 codewords_per_block: int = 0, sms: int = 132) -> dict:
+    """How ``decode`` launches ``n`` codewords: codewords per block, threads
+    per block and, for one-codeword flooding, the layout of the messages
+    (``flooding_layout``; else 0)."""
+    P = resolve_codewords_per_block(params, n, schedule, codewords_per_block)
+    if schedule == "flooding" and P == 1:
+        layout = flooding_layout(params)
+        threads = flooding_threads(params, n, layout, sms)
+    else:
+        layout = LAYOUT_SCRATCH
+        threads = -(-(P * params.Z_c) // 32) * 32
+    return dict(codewords_per_block=P, threads=threads, layout=layout)
+
+
+@functools.lru_cache(maxsize=None)
 def _library(name: str):
     """The built library of kernel ``name`` with its functions declared."""
     lib = kernels_build.load(name)
-    decode_fn = getattr(lib, name + "_decode")
-    decode_fn.argtypes = DECODE_ARGTYPES
-    decode_fn.restype = ctypes.c_int
-    for fn, argtypes in (("max_degree", []), ("max_z", []),
-                         ("max_shared_bytes", []),
-                         ("shared_bytes", [ctypes.c_int] * 5),
-                         ("blocks_per_sm", [ctypes.c_int] * 7)):
+    for fn, argtypes in ARGTYPES[name].items():
         f = getattr(lib, f"{name}_{fn}")
         f.argtypes = argtypes
         f.restype = ctypes.c_int
@@ -224,16 +413,20 @@ def _library(name: str):
 
 def blocks_per_sm(params: LDPCParams, schedule: str = "layered",
                   algorithm: str = "min-sum", message_dtype: str = "float32",
-                  codewords_per_block: int = 1) -> int:
+                  codewords_per_block: int = 1, n: int = 1) -> int:
     """Blocks of the kernel that ``decode`` would launch for these arguments
-    that one SM of the current CUDA device holds at a time (the occupancy
-    the CUDA runtime reports for the built kernel)."""
+    and ``n`` codewords that one SM of the current CUDA device holds at a
+    time (the occupancy the CUDA runtime reports for the built kernel)."""
     name = KERNEL_NAMES[schedule]
     dtype = resolve_message_dtype(message_dtype, algorithm)
-    n = getattr(_library(name), name + "_blocks_per_sm")(
-        _RULE_CODES[algorithm], int(dtype == torch.bfloat16),
-        int(codewords_per_block), params.Z_c, params.num_cols, params.num_rows,
-        len(params.edges[0]))
+    args = [_RULE_CODES[algorithm], int(dtype == torch.bfloat16),
+            int(codewords_per_block), params.Z_c, params.num_cols,
+            params.num_rows, len(params.edges[0])]
+    if schedule == "flooding":
+        shape = launch_shape(params, n, schedule, codewords_per_block,
+                             _sm_count(torch.device("cuda", torch.cuda.current_device())))
+        args += [shape["layout"], shape["threads"], *_cluster_sizes(params, shape["layout"])]
+    n = getattr(_library(name), name + "_blocks_per_sm")(*args)
     if n < 0:
         raise RuntimeError(f"{name}_blocks_per_sm failed: CUDA error {-n}")
     return n
@@ -364,6 +557,8 @@ def decode(
     output_format: str = "cw",
     alpha_schedule=None,
     codewords_per_block: int = 0,
+    *,
+    _threads: int = 0,
 ) -> DecodeResult:
     """BP decode of (..., nci*Z) LLRs; CUDA tensors run the kernel.
 
@@ -398,10 +593,17 @@ def decode(
     codeword; P > 1 asks for P and raises where P*Z exceeds a block's
     threads or shared memory.  Results do not depend on it.
 
+    ``_threads`` (internal, for ``tools/flooding_shapes.py``, which times
+    the alternatives to the block-size rule): a one-codeword flooding
+    launch's threads per block instead of ``flooding_threads``'s; 0 keeps
+    the rule.  Results do not depend on it.
+
     A CUDA tensor launches the kernel on the current stream without
     synchronising (or raises); a CPU tensor runs ``decode_plain``.  The
     kernels keep the per-edge messages in a scratch tensor of E*Z elements
-    per codeword (474 KiB in float32 at BG1 Z=384), allocated here.
+    per codeword (474 KiB in float32 at BG1 Z=384), allocated here, except
+    the one-codeword flooding kernel, which keeps them in the shared memory
+    of a block or of a cluster (``flooding_layout``).
     """
     dtype, nci, out_cols, alpha_schedule = _check_arguments(
         params, llr, algorithm, schedule, message_dtype, channel_format,
@@ -438,9 +640,19 @@ def decode(
     batch_shape = llr.shape[:-1]
     flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
     n = flat.shape[0]
-    P = resolve_codewords_per_block(params, n, schedule, codewords_per_block)
-    need = getattr(lib, name + "_shared_bytes")(Z, nc, nr, E, P)
-    assert need == shared_bytes(schedule, Z, nc, nr, E, P)
+    shape = launch_shape(params, n, schedule, codewords_per_block, _sm_count(dev))
+    P, layout = shape["codewords_per_block"], shape["layout"]
+    flooding = schedule == "flooding"
+    if _threads and flooding and P == 1:
+        shape["threads"] = int(_threads)  # the kernel checks it
+    if flooding:
+        cluster = _cluster_sizes(params, layout)
+        need = lib.ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, *cluster)
+        assert need == (flooding_shared_bytes(params, layout) if P == 1
+                        else shared_bytes(schedule, Z, nc, nr, E, P))
+    else:
+        need = lib.ldpc_layered_shared_bytes(Z, nc, nr, E, P)
+        assert need == shared_bytes(schedule, Z, nc, nr, E, P)
     with torch.cuda.device(dev):
         have = getattr(lib, name + "_max_shared_bytes")()
     if need > have:
@@ -448,7 +660,9 @@ def decode(
             f"{name} needs {need} bytes of shared memory per block for "
             f"num_cols={nc}, Z={Z}; the device allows {have}"
         )
-    edges, row_start = _graph_device(params, row_seq, dev)
+    plans = _graph_device(params, row_seq, dev)
+    if flooding:
+        plans += _flooding_device(params, layout, dev)
     bits = torch.empty((n, out_cols * Z), dtype=torch.int8, device=dev)
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     iters = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -456,24 +670,30 @@ def decode(
         # scratch for the check-to-variable messages; never zero-filled
         # (sweep 0 does not read it).  A packed block lays its share out
         # (E, P*Z), so the last block's share is whole even where n % P != 0.
-        c2v = torch.empty((-(-n // P) * P, E, Z), dtype=dtype, device=dev)
+        # The one-codeword flooding kernel keeps its messages in shared
+        # memory and has no scratch.
+        c2v = None if layout != LAYOUT_SCRATCH else torch.empty(
+            (-(-n // P) * P, E, Z), dtype=dtype, device=dev)
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
+        block = ([P, layout, shape["threads"], *_cluster_sizes(params, layout)]
+                 if flooding else [P])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, name + "_decode")(
                 flat.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-                iters.data_ptr(), c2v.data_ptr(), edges.data_ptr(),
-                row_start.data_ptr(), n, Z, nc, nr, E, out_cols,
+                iters.data_ptr(), None if c2v is None else c2v.data_ptr(),
+                *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
                 int(channel_format == "d"), lo, hi, int(iterations),
                 int(bool(early_termination)), _RULE_CODES[algorithm],
-                int(dtype == torch.bfloat16), P,
+                int(dtype == torch.bfloat16), *block,
                 float(alpha), float(beta), float(a0), int(n0), stream,
             )
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
-        LAUNCHES_BY_P[(name, P)] = LAUNCHES_BY_P.get((name, P), 0) + 1
+        key = (name, P, layout)
+        LAUNCHES_BY_P[key] = LAUNCHES_BY_P.get(key, 0) + 1
     return DecodeResult(
         bits=bits.reshape(batch_shape + (out_cols * Z,)),
         parity_ok=ok.to(torch.bool).reshape(batch_shape),

@@ -76,17 +76,18 @@ def _sign(x):
 def _check_messages(v, algorithm, alpha, beta):
     """Extrinsic messages for one check row (mirrors the kernels' rule)."""
     if algorithm == "sum-product":
-        phis = [_phi(ve.abs()) for ve in v]
+        # phi is elementwise: one call on the row's stacked edges gives each
+        # edge the bits of its own call, with a fraction of the launches
+        vs = torch.stack(v)
+        phis = _phi(vs.abs())
         total = phis[0]
         for p in phis[1:]:
             total = total + p
         sprod = _sign(v[0])
         for ve in v[1:]:
             sprod = sprod * _sign(ve)
-        return [
-            sprod * _sign(ve) * _phi(torch.clamp_min(total - p, _PHI_MIN))
-            for ve, p in zip(v, phis)
-        ]
+        out = sprod * _sign(vs) * _phi(torch.clamp_min(total - phis, _PHI_MIN))
+        return list(out.unbind(0))
     m1 = v[0].abs()
     m2 = torch.full_like(m1, float("inf"))
     idx = torch.zeros_like(m1, dtype=torch.int32)

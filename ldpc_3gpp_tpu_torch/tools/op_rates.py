@@ -33,6 +33,7 @@ ALU_CLASSES = CLASSES[:4]
 CHAINS = 16  # independent dependency chains per thread
 INNER = 64  # steps per chain and loop
 SCRATCH_GROUP = 8  # edges in flight per thread in the scratch stream
+MAX_THREADS = 384  # threads per block at most (MAX_THREADS in csrc/op_rates.cu)
 # Elementwise operations per step: an odd multiply/add step is a multiply and
 # an add (the build does not fuse them), an even one a multiply; a select is a
 # compare and a select (its add or subtract is not counted, as in the TPU

@@ -228,10 +228,10 @@ def test_ctypes_signature_matches_the_cuda_source(schedule):
     name = t_cuda.KERNEL_NAMES[schedule]
     with open(os.path.join(kernels_build.CSRC_DIR, name + ".cu")) as f:
         src = f.read()
-    assert _c_argument_kinds(src, name + "_decode") == list(t_cuda.DECODE_ARGTYPES)
-    assert _c_argument_kinds(src, name + "_shared_bytes") == [ctypes.c_int] * 5
-    for fn in ("max_degree", "max_z", "max_shared_bytes"):
-        assert _c_argument_kinds(src, f"{name}_{fn}") == []
+    for fn, argtypes in t_cuda.ARGTYPES[name].items():
+        assert _c_argument_kinds(src, f"{name}_{fn}") == list(argtypes), fn
+    assert t_cuda.ARGTYPES["ldpc_layered"]["decode"] == t_cuda.DECODE_ARGTYPES
+    assert t_cuda.ARGTYPES["ldpc_flooding"]["decode"] == t_cuda.FLOODING_DECODE_ARGTYPES
     if schedule == "flooding":
         assert _c_argument_kinds(src, "ldpc_phi") == list(t_cuda.PHI_ARGTYPES)
     # the rule codes are the header's

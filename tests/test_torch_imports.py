@@ -28,6 +28,7 @@ EXPECTED_MODULES = {
     "models.encoder", "models.decoder", "models.chain",
     "utils.rng", "utils.device",
     "parallel.montecarlo", "parallel.sweep", "tools.op_rates", "tools.small_z",
+    "tools.flooding_shapes",
 }
 
 

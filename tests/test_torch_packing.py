@@ -90,9 +90,11 @@ def test_automatic_rule_fits_every_lifting_size():
                 seen.add(P)
                 assert P >= 1 and (P == 1 or P in t_cuda.PACK_CHOICES)
                 assert -(-(P * Z) // 32) * 32 <= t_cuda.MAX_BLOCK_THREADS
-                assert t_cuda.shared_bytes(
-                    schedule, Z, params.num_cols, params.num_rows, E, P
-                ) <= t_cuda.MAX_BLOCK_SHARED_BYTES == 232_448
+                smem = (t_cuda.flooding_shared_bytes(params, t_cuda.flooding_layout(params))
+                        if schedule == "flooding" and P == 1 else
+                        t_cuda.shared_bytes(schedule, Z, params.num_cols,
+                                            params.num_rows, E, P))
+                assert smem <= t_cuda.MAX_BLOCK_SHARED_BYTES == 232_448
                 # the measured cuts: no packing above 64 lanes per block, in
                 # a launch too small to fill the card, or for full warps
                 if 2 * Z > t_cuda.PACK_MAX_LANES or n < 2 * t_cuda.PACK_MIN_BLOCKS \
@@ -114,18 +116,26 @@ def test_automatic_rule_fits_every_lifting_size():
                     for n in (256, 2048, 4096)] == [1, 1, 1]
     # 20 lanes fill a warp no better two at a time, and four are over the cap
     assert t_cuda.auto_codewords_per_block(z20, 65536, "layered") == 1
-    assert [t_cuda.auto_codewords_per_block(z8, n, "flooding")
+    assert [t_cuda.auto_codewords_per_block(z8, n, "layered")
             for n in (8192, 16384, 32768)] == [2, 4, 8]
+    # flooding never packs: its one-codeword kernel was as fast as the packed
+    # one at the rule's choices
+    for p in (z2, z8):
+        assert [t_cuda.auto_codewords_per_block(p, n, "flooding")
+                for n in (8192, 16384, 65536)] == [1, 1, 1]
     assert [t_cuda.auto_codewords_per_block(z2, n, "layered")
             for n in (16384, 65536)] == [4, 16]
 
 
 def test_shared_bytes_formula():
-    # one codeword per block: the figures of the kernels' notes (BG1 Z=384)
+    # one codeword per block: the figures of the kernels' notes (BG1 Z=384:
+    # one flooding block would need totals, messages and both plans, so a
+    # cluster of three blocks holds the codeword)
     p = TParams(BG=1, A=8424, G=25272, Q_m=2)
     E = len(p.edges[0])
-    assert t_cuda.shared_bytes("flooding", 384, p.num_cols, p.num_rows, E) == 214_140
-    assert t_cuda.shared_bytes("layered", 384, p.num_cols, p.num_rows, E) == 214_140 - 68 * 384 * 4
+    assert t_cuda.shared_bytes("flooding", 384, p.num_cols, p.num_rows, E) == 595_344
+    assert t_cuda.flooding_layout(p) == 3 and t_cuda.flooding_shared_bytes(p, 3) == 205_264
+    assert t_cuda.shared_bytes("layered", 384, p.num_cols, p.num_rows, E) == 109_692
     assert not t_cuda._fits("flooding", p, 2) and t_cuda._fits("flooding", p, 1)
     # P codewords: P sets of state and P flag words on top of the tables
     q = small_z.table_params(20)
@@ -139,10 +149,11 @@ def test_ctypes_signatures_of_the_new_entries():
     for name in t_cuda.KERNEL_NAMES.values():
         with open(os.path.join(kernels_build.CSRC_DIR, name + ".cu")) as f:
             src = f.read()
-        assert _c_argument_kinds(src, name + "_decode") == list(t_cuda.DECODE_ARGTYPES)
-        assert _c_argument_kinds(src, name + "_shared_bytes") == [ctypes.c_int] * 5
-        assert _c_argument_kinds(src, name + "_blocks_per_sm") == [ctypes.c_int] * 7
+        for fn in ("decode", "shared_bytes", "blocks_per_sm"):
+            assert _c_argument_kinds(src, f"{name}_{fn}") == list(t_cuda.ARGTYPES[name][fn])
         assert "codewords_per_block" in src and f"{name}_packed_kernel" in src
+    assert t_cuda.ARGTYPES["ldpc_layered"]["shared_bytes"] == [ctypes.c_int] * 5
+    assert t_cuda.ARGTYPES["ldpc_layered"]["blocks_per_sm"] == [ctypes.c_int] * 7
     with open(os.path.join(kernels_build.CSRC_DIR, "op_rates.cu")) as f:
         src = f.read()
     assert _c_argument_kinds(src, "op_rates_run") == list(op_rates.RUN_ARGTYPES)
