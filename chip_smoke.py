@@ -42,6 +42,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -326,7 +327,48 @@ def phase_kernel_vs_plain(dev, tally):
           schedule="flooding", iterations=P2_ITERATIONS, **ds)
     check("V6-layered", params, mid[:, 0], algorithm="min-sum",
           message_dtype="bfloat16", iterations=ITERATIONS, **ds)
-    return phase_layout_edges(dev, check), phase_config1_launch(dev, check)
+    return (phase_layout_edges(dev, check), phase_config1_launch(dev, check),
+            phase_tie_cases(dev, check))
+
+
+def tied(llr):
+    """LLRs on a grid of six levels, +-0.5, +-1.5, +-2.5 (``floor(x) + 0.5``,
+    clamped): rows tie at their smallest magnitude in sweep 0, and under
+    offset-min-sum with beta 0.5, whose values stay on a grid of 0.5, in
+    every sweep; no level is 0, so no LLR is -0.0."""
+    return torch.clamp(torch.floor(llr) + 0.5, -2.5, 2.5)
+
+
+def phase_tie_cases(dev, check):
+    """The layered min-sum family's compressed messages where rows tie at
+    their smallest magnitude (``tied`` LLRs): V1 at the flagship shape and at
+    Z=20; offset-min-sum with beta = 0.5, where the smallest magnitudes of
+    the grid become 0 and messages +-0.0 ('cw' in and out, natural order);
+    bfloat16 messages; the packed kernel with CONFIG1_PACK codewords per
+    block.  Around the waterfall, so that codewords stop at different
+    sweeps.  Returns the share of LLRs at the smallest level, per shape."""
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+
+    ds = dict(channel_format="d", output_format="sys")
+    oms = dict(algorithm="offset-min-sum", beta=0.5, layer_order="natural")
+    out = {}
+    for params, db, n in ((LDPCParams(**FLAGSHIP), -0.75, 48),
+                          (LDPCParams(**CONFIG1_FIELDS), 1.0, 64)):
+        d = tied(noisy_d_tilde(params, "QPSK", db, n, 15, dev)[0][:, 0])
+        cw = codeword_llrs(params, d)
+        out[params.Z_c] = float((d.abs() == 0.5).float().mean())
+        check("V1", params, d, iterations=ITERATIONS, algorithm="min-sum", **ds)
+        check("V1'", params, cw, iterations=ITERATIONS, **oms)
+        check("V6-layered", params, d, iterations=ITERATIONS, algorithm="min-sum",
+              message_dtype="bfloat16", **ds)
+        check("V6-layered", params, cw, iterations=ITERATIONS, message_dtype="bfloat16",
+              early_termination=False, **oms)
+        if params.Z_c == 20:
+            check("V7-layered", params, d, iterations=ITERATIONS, algorithm="min-sum",
+                  codewords_per_block=CONFIG1_PACK, **ds)
+            check("V7-layered", params, cw, iterations=ITERATIONS, message_dtype="bfloat16",
+                  codewords_per_block=CONFIG1_PACK, **oms)
+    return out
 
 
 def phase_config1_launch(dev, check):
@@ -999,7 +1041,7 @@ def phase_variant_steps(generator, dev):
 
 
 def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered",
-                 algorithm="min-sum", early_termination=True, message_bytes=4,
+                 algorithm="min-sum", early_termination=True, scratch_bytes=0,
                  shape=None):
     """Least time (ms) the card could take for this run's decodes.
 
@@ -1015,9 +1057,11 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
 
     Beside the bound, the work of the kernel's own design for
     ``measured_rate``; ``shape`` is ``decoder_cuda.launch_shape``'s record.
-    Layered and packed flooding: one message write per update sweep and one
-    read per update sweep after the first, in the scratch.  One-codeword
-    flooding: a message phase per update sweep plus the one whose vote stops
+    Layered and packed flooding: a codeword's ``scratch_bytes`` (its share of
+    ``decoder_cuda.scratch_shape``: the layered min-sum family's compressed
+    words, nr*Z*12 B, or 8 with bfloat16 messages; else E*Z messages) written
+    once per update sweep and read once per update sweep after the first.
+    One-codeword flooding: a message phase per update sweep plus the one whose vote stops
     the codeword (its messages are discarded), a parity-only pass where the
     budget is reached; messages in shared memory (the block's or the
     cluster's), written by the message phase and read by the column phase and
@@ -1062,7 +1106,7 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
                     syndrome_edge_lanes=E * Z * total_syndromes,
                     # an update reads and writes a total, a syndrome pass reads
                     shared_accesses=E * Z * (2 * total_updates + total_syndromes),
-                    scratch_bytes=E * Z * message_bytes * int((updates + reads).sum()))
+                    scratch_bytes=scratch_bytes * int((updates + reads).sum()))
     return dict(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1104,6 +1148,20 @@ def measured_rate(work, rates, algorithm):
                 measured_rate_sum_ms=sum(parts.values()), **parts)
 
 
+def scratch_per_codeword(params, n, P, kw) -> float:
+    """Bytes of message scratch per codeword that ``decode`` gives a launch
+    of ``n`` codewords, ``P`` per block, with the arguments ``kw``."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    spec = decoder_cuda.scratch_shape(
+        params, n, kw.get("schedule", "layered"), kw.get("algorithm", "min-sum"),
+        kw.get("message_dtype", "float32"), P)
+    if spec is None:
+        return 0
+    shape, dtype = spec
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size() / (shape[0] * P)
+
+
 def measure_variant(params, llr, reps, plain=True, **kw):
     """One kernel variant at its path's shape: time by CUDA events, the
     plain version's time (one run) and equality with it (with ``plain``),
@@ -1134,7 +1192,7 @@ def measure_variant(params, llr, reps, plain=True, **kw):
         schedule=kw.get("schedule", "layered"),
         algorithm=kw.get("algorithm", "min-sum"),
         early_termination=kw.get("early_termination", True),
-        message_bytes=2 if kw.get("message_dtype") == "bfloat16" else 4,
+        scratch_bytes=scratch_per_codeword(params, n, launch["codewords_per_block"], kw),
         shape=launch,
     )
     shape = dict(
@@ -1300,7 +1358,8 @@ def step_times(cfg, generator, esn0_db, dev):
     rx = tx + complex_noise(generator, tx.shape, noise_var, dev)
     d_tilde = split_rate_matched_symbols(p, rx, "QPSK", noise_var)
     dkw = dict(iterations=cfg.iterations, algorithm=cfg.algorithm,
-               schedule=cfg.schedule, backend=cfg.backend)
+               schedule=cfg.schedule, backend=cfg.backend,
+               message_dtype=cfg.message_dtype)
     stages = {
         "encode_to_symbols": time_ms(lambda: encode_to_symbols(p, a, "QPSK"), 5),
         "draw_bits_and_noise": time_ms(lambda: (
@@ -1486,6 +1545,8 @@ def phase_times(generator, dev, card):
             v: out[v]["ms_one_codeword_per_block"] for v in ("V7-flooding", "V7-layered")},
         "kernel_us_per_codeword_at_4x_batch": out["V1"]["us_per_codeword_at_4x_batch"],
         "P1": step_times(flagship_config(), generator, MAIN_ESN0_DB, dev),
+        "P4": step_times(flagship_config(message_dtype="bfloat16"), generator,
+                         MAIN_ESN0_DB, dev),
         "P2": step_times(p2_config(), generator, MAIN_ESN0_DB, dev),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }})
@@ -1510,6 +1571,40 @@ VARIANTS = [
     ("V7-layered", LAYERED_SOURCE, TPU_PACKING),
     ("V7-flooding", FLOODING_SOURCE, TPU_PACKING),
 ]
+
+
+def ptxas_entries(log):
+    """{kernel entry: registers, stack and spill bytes} from ``ptxas -v``."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def check_layered_registers():
+    """The layered and packed kernels' min-sum-family instantiations (float
+    and bfloat16 messages) fit two 384-thread blocks per SM: at most 80
+    registers, no stack, no spills.  Returns their ``ptxas`` records."""
+    from ldpc_3gpp_tpu_torch import kernels_build
+
+    entries = {k: v for k, v in ptxas_entries(kernels_build.build_log("ldpc_layered")).items()
+               if "ldpc_layered" in k and "ILb0E" in k}  # SUM_PRODUCT = false
+    bad = {k: v for k, v in entries.items()
+           if v.get("registers", 999) > 80 or v.get("stack", 1) or v.get("spill_stores", 1)
+           or v.get("spill_loads", 1)}
+    if len(entries) != 4 or bad:
+        raise AssertionError(f"layered min-sum kernels spill or miss: {entries}")
+    return entries
 
 
 def main() -> int:
@@ -1537,14 +1632,14 @@ def main() -> int:
     ptxas = [ln for n in libs for ln in kernels_build.build_log(n).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": watch.lap(), "kernels": sorted(libs),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "layered_min_sum_family": check_layered_registers()})
 
     tally = Tally()
-    edges, config1 = phase_kernel_vs_plain(dev, tally)
+    edges, config1, ties = phase_kernel_vs_plain(dev, tally)
     emit({"phase": "kernel_vs_plain", "seconds": watch.lap(), "cases": tally.total,
           "max_abs_diff": tally.max_abs_diff, "tolerance": 0,
           "cases_by_variant": dict(tally.cases), "flooding_layout_edges": edges,
-          "config1_launch": config1})
+          "config1_launch": config1, "tie_cases_llrs_at_smallest_level_by_Z": ties})
 
     compared, mixes, plain_cases = phase_packed_vs_plain(dev, tally)
     emit({"phase": "packed_vs_plain", "seconds": watch.lap(),
@@ -1620,6 +1715,9 @@ def main() -> int:
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})
+    per_sm = {v: times[v]["blocks_per_sm"] for v in ("V1", "V1'", "V4-layered", "V5", "V6-layered")}
+    if set(per_sm.values()) != {2}:
+        raise AssertionError(f"layered min-sum kernels not at 2 blocks per SM: {per_sm}")
 
     k2, rates = phase_op_rates(dev, times)
     emit({"phase": "op_rates", "seconds": watch.lap(), "card": card, "K2": k2,

@@ -181,10 +181,13 @@ __device__ __forceinline__ void msg_store(__nv_bfloat16* p, float m) {
 // The row is unrolled to MAX_DEG predicated slots so that its inputs stay in
 // registers and all its loads are issued before the first is used.
 // Returns the XOR of the sign bits of the totals read (the row's parity).
+// The layered min-sum family keeps its messages in compressed form and
+// updates a row with layered_row_compressed below instead.
 template <bool SUM_PRODUCT, bool FLOODING, typename MSG>
 __device__ __forceinline__ unsigned check_row(
     float* totals, float* acc, MSG* c2v, const int4* edges, int e0, int deg,
     int z, int Z, bool first, float alpha_t, int offset_rule, float beta) {
+  static_assert(SUM_PRODUCT || FLOODING, "layered min-sum: layered_row_compressed");
   float v[MAX_DEG];
   unsigned par = 0;
   if constexpr (!SUM_PRODUCT) {
@@ -230,11 +233,7 @@ __device__ __forceinline__ unsigned check_row(
         const float msg = __uint_as_float(mag ^ (b & SIGN_BIT));
         msg_store(c2v + ed.z, msg);
         const int idx = ed.x + rot(z, ed.y, Z);
-        if constexpr (FLOODING) {
-          acc[idx] = ed.w ? msg : __fadd_rn(acc[idx], msg);
-        } else {
-          totals[idx] = __fadd_rn(v[i], msg);
-        }
+        acc[idx] = ed.w ? msg : __fadd_rn(acc[idx], msg);
       }
     }
   } else {
@@ -278,6 +277,149 @@ __device__ __forceinline__ unsigned check_row(
     }
   }
   return par;
+}
+
+// ---- the layered min-sum family's messages in compressed form -------------
+//
+// check_row gives every edge of a row, at lane z, the message
+// (|v_i| == m1 ? m2s : m1s) ^ sign(v_i), where m1s and m2s are the scaled (or
+// offset) two smallest magnitudes with the row's sign product folded in.  So
+// four words rebuild every message of the row bit for bit: m1s, m2s, and a
+// meta word with the sign bit of each v_i (bit i) and the index of the first
+// edge whose magnitude is m1 (bits MSG_IDX_SHIFT..31).  Where several edges
+// share the smallest magnitude the tournament gives m2 == m1, so m2s == m1s
+// and "the first such edge gets m2s" is exact.  bfloat16 messages: rounding
+// to nearest even is symmetric in sign, so bf16(m ^ s) == bf16(m) ^ s, and the
+// two magnitudes are stored as bfloat16 with no change of bits.  Per (row,
+// lane): three 32-bit words (m1s, m2s, meta) with float32 messages, two
+// (m1s | m2s << 16 as bfloat16 bits, meta) with bfloat16; each word type is a
+// plane of its own, lane-contiguous, `L` words apart.
+
+#define MSG_IDX_SHIFT 27  // MAX_DEG <= 27 sign bits below the 5-bit index
+static_assert(MAX_DEG <= MSG_IDX_SHIFT, "sign bits overlap the min index");
+
+template <typename MSG>
+struct RowWords {
+  static constexpr int N = sizeof(MSG) == 4 ? 3 : 2;  // 32-bit words per lane
+};
+
+// The words of one row at lane z, widened to float32 bit patterns.
+struct RowMsgs {
+  unsigned m1s, m2s, meta;
+};
+
+template <typename MSG>
+__device__ __forceinline__ RowMsgs load_row_msgs(const unsigned* w, int L) {
+  RowMsgs m;
+  if constexpr (RowWords<MSG>::N == 3) {
+    m.m1s = w[0];
+    m.m2s = w[L];
+    m.meta = w[2 * L];
+  } else {
+    const unsigned pair = w[0];  // bfloat16 bits widen by a shift
+    m.m1s = pair << 16;
+    m.m2s = pair & 0xffff0000u;
+    m.meta = w[L];
+  }
+  return m;
+}
+
+template <typename MSG>
+__device__ __forceinline__ void store_row_msgs(unsigned* w, int L, unsigned m1s,
+                                               unsigned m2s, unsigned meta) {
+  if constexpr (RowWords<MSG>::N == 3) {
+    w[0] = m1s;
+    w[L] = m2s;
+    w[2 * L] = meta;
+  } else {
+    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(m1s)));
+    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(m2s)));
+    w[0] = lo | (hi << 16);
+    w[L] = meta;
+  }
+}
+
+// One base row's layered min-sum / offset-min-sum update by the thread that
+// owns check z: check_row's arithmetic with the old messages rebuilt from
+// the row's words `old` (unless `first`) and the new words stored at `w`.
+// The totals take the unrounded message.  Returns the row's parity, as
+// check_row does.  The row is unrolled to SLOTS >= deg slots, predicated
+// where SLOTS > deg.
+template <typename MSG, int SLOTS>
+__device__ __forceinline__ unsigned layered_row_slots(
+    float* totals, const RowMsgs& old, unsigned* w, int L, const int4* edges,
+    int e0, int deg, int z, int Z, bool first, float alpha_t, int offset_rule,
+    float beta) {
+  float v[SLOTS];
+  unsigned par = 0, sx = 0, m1 = MAG_INF, m2 = MAG_INF, idx = 0, signs = 0;
+  const unsigned old_idx = old.meta >> MSG_IDX_SHIFT;
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    if (i < deg) {
+      const int4 ed = edges[e0 + i];
+      const float t = totals[ed.x + rot(z, ed.y, Z)];
+      par ^= __float_as_uint(t);
+      const unsigned old_msg = (i == old_idx ? old.m2s : old.m1s) ^
+                               ((old.meta << (31 - i)) & SIGN_BIT);
+      const float ve = first ? t : __fsub_rn(t, __uint_as_float(old_msg));
+      v[i] = ve;
+      const unsigned b = __float_as_uint(ve);
+      const unsigned mg = b & MAG_MASK;
+      sx ^= b;
+      signs |= (b >> 31) << i;
+      if (i == 0) {
+        m1 = mg;
+      } else {
+        idx = mg < m1 ? i : idx;
+        m2 = min(m2, max(m1, mg));
+        m1 = min(m1, mg);
+      }
+    }
+  }
+  float m1f, m2f;
+  if (offset_rule) {
+    m1f = fmaxf(__fsub_rn(__uint_as_float(m1), beta), 0.0f);
+    m2f = fmaxf(__fsub_rn(__uint_as_float(m2), beta), 0.0f);
+  } else {
+    m1f = __fmul_rn(alpha_t, __uint_as_float(m1));
+    m2f = __fmul_rn(alpha_t, __uint_as_float(m2));
+  }
+  const unsigned ssign = sx & SIGN_BIT;
+  const unsigned m1s = __float_as_uint(m1f) ^ ssign;
+  const unsigned m2s = __float_as_uint(m2f) ^ ssign;
+  store_row_msgs<MSG>(w, L, m1s, m2s, signs | (idx << MSG_IDX_SHIFT));
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    if (i < deg) {
+      const int4 ed = edges[e0 + i];
+      const unsigned b = __float_as_uint(v[i]);
+      const float msg = __uint_as_float((i == idx ? m2s : m1s) ^ (b & SIGN_BIT));
+      totals[ed.x + rot(z, ed.y, Z)] = __fadd_rn(v[i], msg);
+    }
+  }
+  return par;
+}
+
+// layered_row_slots unrolled to the row's own degree, 3 to 10 (a row's
+// degree is the same for every thread of the block), so that no slot is
+// predicated off; the four rows of 19 edges of BG1 (and any other degree)
+// take MAX_DEG predicated slots.
+template <typename MSG>
+__device__ __forceinline__ unsigned layered_row_compressed(
+    float* totals, const RowMsgs& old, unsigned* w, int L, const int4* edges,
+    int e0, int deg, int z, int Z, bool first, float alpha_t, int offset_rule,
+    float beta) {
+#define ROW_EXACT(D) \
+  case D: return layered_row_slots<MSG, D>(totals, old, w, L, edges, e0, D, z, Z, \
+                                           first, alpha_t, offset_rule, beta);
+  switch (deg) {
+    ROW_EXACT(3) ROW_EXACT(4) ROW_EXACT(5) ROW_EXACT(6) ROW_EXACT(7)
+    ROW_EXACT(8) ROW_EXACT(9) ROW_EXACT(10)
+    default:
+      return layered_row_slots<MSG, MAX_DEG>(totals, old, w, L, edges, e0, deg, z,
+                                             Z, first, alpha_t, offset_rule, beta);
+  }
+#undef ROW_EXACT
 }
 
 // Shared-memory layout after the float state: the edge table, 16-byte

@@ -9,23 +9,41 @@
 //
 // What bounds it on this card.  Per codeword and sweep the algorithm touches
 // every edge of the lifted graph once: 2*E*Z shared-memory accesses of the
-// posterior totals (one rotated read, one write back) and 2*E*Z*4 bytes of
-// check-to-variable message traffic (one read, one write).  The totals
-// (nc*Z*4 B = 102 KiB at BG1 Z=384) fit a block's shared memory; the messages
-// (E*Z*4 B = 474 KiB per codeword at BG1 Z=384) do not, so they live in a
-// global scratch tensor and their traffic goes through L2 to device memory.
-// That message traffic, times the mean number of sweeps, is the kernel's
-// bound with the min-sum family, well above the arithmetic (about a dozen
-// integer/float operations per edge and lane); bfloat16 messages halve it.
+// posterior totals (one rotated read, one write back) and the check-to-
+// variable messages of every row, read and written once.  The totals
+// (nc*Z*4 B = 102 KiB at BG1 Z=384) fit a block's shared memory; the
+// messages do not, so they live in a global scratch tensor and their traffic
+// goes through L2 to device memory.  A row cannot start before the previous
+// row's totals are written (one barrier per row), and an SM holds only two
+// blocks of one codeword each, so a row's chain of dependent shared-memory
+// reads and compares is not hidden by other work: the kernel is bound by that
+// latency per row, then by the scratch traffic (the package's
+// tools/layered_probe.py times the kernel without each), well above its
+// arithmetic (about a dozen integer/float operations per edge and lane).
 // Sum-product evaluates phi twice per edge and lane (about 60 operations
 // each, one of them a division) and is bound by that arithmetic.
 //
 // What the design does about it.  One block decodes one codeword; thread z
 // owns check z of the current base row.  Totals stay in shared memory for the
 // whole decode, in variable coordinates, so a circulant rotation is the
-// address (z + shift) mod Z and costs nothing.  Thread z touches only lane z
-// of each message block, so message accesses coalesce, and a row's loads are
-// all issued before the first is used (the row is unrolled to MAX_DEG
+// address (z + shift) mod Z and costs nothing.  A row is unrolled to its own
+// degree (ldpc_bp.cuh), so its instructions are those of its own edges (at
+// the densest row's 20 predicated slots a BG1 sweep would issue the work of
+// 920 edges for its 316).  The min-sum family keeps a row's messages in
+// compressed form (ldpc_bp.cuh): the two scaled smallest magnitudes with the
+// row's sign, the sign bits and the index of the smallest, three 32-bit
+// words per row and lane (two with bfloat16 messages), which rebuild every
+// message of the row bit for bit.  That is 207 KiB per codeword at BG1 Z=384
+// instead of E*Z*4 B = 474 KiB per edge (138 KiB in bfloat16 instead of
+// 237), so the codewords in flight hold about the 50 MB of L2 rather than 2.5
+// times it.  The scratch is laid out (row, word, Z) in processing order: each
+// word is a lane-contiguous plane, so a warp's loads are 128-byte coalesced,
+// and thread z alone reads and writes lane z of a row's words.  The words of
+// the next row therefore depend on nothing that the row barrier protects: a
+// thread loads them LOOKAHEAD rows before their use (three registers a row,
+// not one per edge), and their latency hides behind the current row and its
+// barrier.  Sum-product has no such form and keeps one float per edge, laid
+// out (E, Z), whose row is loaded in full before its first use (MAX_DEG
 // predicated slots held in registers).  Sweep 0 never reads the messages
 // (they are known to be zero), which also spares zero-filling the scratch.  A
 // block stops at the sweep in which its codeword's parity passed, so early
@@ -47,23 +65,57 @@
 // row for that one warp, a private copy of the edge table per block, and at
 // most 32 resident blocks per SM, half of its 64 warps.  The packed kernel
 // gives a block P codewords: thread t owns lane t % Z of codeword t / Z, one
-// edge table serves all P, and the block's message scratch is laid out
-// (E, P*Z) so that a row's messages are one contiguous run across the P
-// codewords.  Votes and stops are per codeword (a flag word each in shared
-// memory, set between two barriers); a codeword that passed stops at the
-// sweep the one-codeword kernel stops at and writes nothing afterwards, its
-// lanes still reach every barrier, and the block leaves when all P are done.
+// edge table serves all P, and the block's share of the scratch is laid out
+// (row, word, P*Z) (sum-product: (E, P*Z)) so that a row's words are one
+// contiguous run across the P codewords.  Votes and stops are per codeword
+// (a flag word each in shared memory, set between two barriers); a codeword
+// that passed stops at the sweep the one-codeword kernel stops at and writes
+// nothing afterwards, its lanes still reach every barrier, and the block
+// leaves when all P are done.
 // It is a kernel of its own, so the one-codeword kernel keeps its registers.
 
 #include "ldpc_bp.cuh"
 
+// Rows by which a thread loads a row's message words ahead of their use.
+// On an H100, 1 and 2 were within 1.1 % of each other, 1 ahead once rows ran
+// at their own degree (PERF.md section 6; tools/layered_probe.py times 2).
+constexpr int LOOKAHEAD = 1;
+
+// The min-sum family's words of the rows ahead of the current one, in
+// registers.  `next` returns row r's words and issues the load of row
+// r + LOOKAHEAD, which past the last row is a row of the next sweep, written
+// earlier in this one.  In sweep 0 only those rows are loaded: the others
+// hold nothing yet, and sweep 0 reads no message.  A load that early
+// termination then discards is harmless.
+template <typename MSG>
+struct RowsAhead {
+  RowMsgs q[LOOKAHEAD] = {};
+
+  __device__ __forceinline__ RowMsgs next(const unsigned* words, int r, int nr,
+                                          int L, bool first) {
+    const RowMsgs cur = q[0];
+#pragma unroll
+    for (int k = 0; k + 1 < LOOKAHEAD; ++k) q[k] = q[k + 1];
+    int rn = r + LOOKAHEAD;
+    const bool wrap = rn >= nr;
+    if (wrap) rn -= nr;
+    if (!first || wrap)
+      q[LOOKAHEAD - 1] =
+          load_row_msgs<MSG>(words + (size_t)rn * RowWords<MSG>::N * L, L);
+    return cur;
+  }
+};
+
 // Two blocks per SM for the min-sum family; sum-product keeps a row's inputs
 // and their phi in registers and is not held to that register budget.
+// `scratch`: sum-product, E*Z float messages per codeword, laid out (E, Z);
+// the min-sum family, nr*N*Z words per codeword, laid out (row, word, Z) in
+// processing order (RowWords<MSG>::N words per row and lane).
 template <bool SUM_PRODUCT, typename MSG>
 __global__ void __launch_bounds__(MAX_THREADS, SUM_PRODUCT ? 1 : 2)
 ldpc_layered_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
                     int* __restrict__ ok_out, int* __restrict__ it_out,
-                    MSG* __restrict__ c2v_all,
+                    void* __restrict__ scratch,
                     const int4* __restrict__ edges_g,
                     const int* __restrict__ row_start_g, DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -85,7 +137,11 @@ ldpc_layered_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
         totals, nullptr, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, a);
   __syncthreads();
 
-  MSG* c2v = c2v_all + cw * (size_t)(E * Z) + z; // this thread's lane
+  // this thread's lane of the codeword's messages
+  float* c2v = static_cast<float*>(scratch) + cw * (size_t)(E * Z) + z;
+  unsigned* words = static_cast<unsigned*>(scratch) +
+                    cw * (size_t)(nr * RowWords<MSG>::N * Z) + z;
+  RowsAhead<MSG> ahead;
   int used = a.iterations;
   bool done = false;
 
@@ -97,10 +153,18 @@ ldpc_layered_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
       const int e0 = row_start[r];
       const int deg = row_start[r + 1] - e0;
       // parity of the totals as read in this sweep
-      if (active)
-        bad |= check_row<SUM_PRODUCT, false, MSG>(
-            totals, nullptr, c2v, edges, e0, deg, z, Z, first, alpha_t,
-            a.offset_rule, a.beta);
+      if (active) {
+        if constexpr (SUM_PRODUCT) {
+          bad |= check_row<true, false, float>(
+              totals, nullptr, c2v, edges, e0, deg, z, Z, first, alpha_t,
+              a.offset_rule, a.beta);
+        } else {
+          const RowMsgs old = ahead.next(words, r, nr, Z, first);
+          bad |= layered_row_compressed<MSG>(
+              totals, old, words + (size_t)r * RowWords<MSG>::N * Z, Z, edges,
+              e0, deg, z, Z, first, alpha_t, a.offset_rule, a.beta);
+        }
+      }
       __syncthreads();
     }
     if (a.early_termination) {
@@ -136,13 +200,15 @@ ldpc_layered_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
 // P codewords per block (P >= 2; see the note at the top of the file).  The
 // arithmetic per codeword is the one-codeword kernel's, so the results are
 // bit-identical.  Shared memory: P sets of totals, the edge table (message
-// offsets scaled by P: the block's scratch is (E, P*Z)), the row offsets and
-// one flag word per codeword.
+// offsets scaled by P: a sum-product block's scratch is (E, P*Z)), the row
+// offsets and one flag word per codeword.  The min-sum family's block share
+// of the scratch is (row, word, P*Z): a row's words are one contiguous run
+// per word across the P codewords.
 template <bool SUM_PRODUCT, typename MSG>
 __global__ void __launch_bounds__(MAX_THREADS, SUM_PRODUCT ? 1 : 2)
 ldpc_layered_packed_kernel(const float* __restrict__ llr,
                            int8_t* __restrict__ bits, int* __restrict__ ok_out,
-                           int* __restrict__ it_out, MSG* __restrict__ c2v_all,
+                           int* __restrict__ it_out, void* __restrict__ scratch,
                            const int4* __restrict__ edges_g,
                            const int* __restrict__ row_start_g, DecodeArgs a,
                            int P, int ncw) {
@@ -155,6 +221,7 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
   const int t = threadIdx.x;
   const int k = t / Z;       // codeword of this thread within the block
   const int z = t - k * Z;   // its lane
+  const int L = P * Z;       // lanes of the block
   const size_t cw = (size_t)blockIdx.x * P + k;
   const bool active = k < P && cw < (size_t)ncw;
   float* totals = reinterpret_cast<float*>(smem) + (size_t)(active ? k : 0) * nc * Z;
@@ -171,7 +238,10 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
         totals, nullptr, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, a);
   __syncthreads();
 
-  MSG* c2v = c2v_all + (size_t)blockIdx.x * ((size_t)E * P * Z) + t;
+  float* c2v = static_cast<float*>(scratch) + (size_t)blockIdx.x * ((size_t)E * L) + t;
+  unsigned* words = static_cast<unsigned*>(scratch) +
+                    (size_t)blockIdx.x * ((size_t)nr * RowWords<MSG>::N * L) + t;
+  RowsAhead<MSG> ahead;
   int used = a.iterations;
   bool passed = false;   // this thread's codeword passed its parity vote
   bool done = !active;   // nothing (more) to do for this thread
@@ -184,10 +254,18 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
     for (int r = 0; r < nr; ++r) {
       const int e0 = row_start[r];
       const int deg = row_start[r + 1] - e0;
-      if (!done)
-        bad |= check_row<SUM_PRODUCT, false, MSG>(
-            totals, nullptr, c2v, edges, e0, deg, z, Z, first, alpha_t,
-            a.offset_rule, a.beta);
+      if (!done) {
+        if constexpr (SUM_PRODUCT) {
+          bad |= check_row<true, false, float>(
+              totals, nullptr, c2v, edges, e0, deg, z, Z, first, alpha_t,
+              a.offset_rule, a.beta);
+        } else {
+          const RowMsgs old = ahead.next(words, r, nr, L, first);
+          bad |= layered_row_compressed<MSG>(
+              totals, old, words + (size_t)r * RowWords<MSG>::N * L, L, edges,
+              e0, deg, z, Z, first, alpha_t, a.offset_rule, a.beta);
+        }
+      }
       __syncthreads();
     }
     if (a.early_termination) {  // uniform over the block
@@ -235,7 +313,7 @@ extern "C" int ldpc_layered_shared_bytes(int Z, int nc, int nr, int E, int P) {
 }
 
 template <bool SUM_PRODUCT, typename MSG>
-static int launch(const void* llr, void* bits, void* ok, void* iters, void* c2v,
+static int launch(const void* llr, void* bits, void* ok, void* iters, void* scratch,
                   const void* edges, const void* row_start, int ncw, int P,
                   const DecodeArgs& a, cudaStream_t stream) {
   const int threads = ((P * a.Z + 31) / 32) * 32;
@@ -247,7 +325,7 @@ static int launch(const void* llr, void* bits, void* ok, void* iters, void* c2v,
     if (err != cudaSuccess) return (int)err;
     ldpc_layered_packed_kernel<SUM_PRODUCT, MSG>
         <<<(ncw + P - 1) / P, threads, smem_bytes, stream>>>(
-            (const float*)llr, (int8_t*)bits, (int*)ok, (int*)iters, (MSG*)c2v,
+            (const float*)llr, (int8_t*)bits, (int*)ok, (int*)iters, scratch,
             (const int4*)edges, (const int*)row_start, a, P, ncw);
     return (int)cudaGetLastError();
   }
@@ -256,7 +334,7 @@ static int launch(const void* llr, void* bits, void* ok, void* iters, void* c2v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   ldpc_layered_kernel<SUM_PRODUCT, MSG><<<ncw, threads, smem_bytes, stream>>>(
-      (const float*)llr, (int8_t*)bits, (int*)ok, (int*)iters, (MSG*)c2v,
+      (const float*)llr, (int8_t*)bits, (int*)ok, (int*)iters, scratch,
       (const int4*)edges, (const int*)row_start, a);
   return (int)cudaGetLastError();
 }
@@ -289,15 +367,24 @@ extern "C" int ldpc_layered_blocks_per_sm(int rule, int bf16_messages,
   return occupancy<false, float>(P, threads, smem_bytes);
 }
 
+// Bytes of one block's share of the scratch: sum-product, P*E*Z float
+// messages, laid out (E, P*Z); the min-sum family, nr*N*P*Z words of 32 bits,
+// laid out (row, word, P*Z) (N = 3 with float32 messages, 2 with bfloat16).
+extern "C" int ldpc_layered_scratch_bytes(int rule, int bf16_messages, int Z,
+                                          int nr, int E, int P) {
+  if (rule == RULE_SUM_PRODUCT) return E * P * Z * 4;
+  return nr * (bf16_messages ? RowWords<__nv_bfloat16>::N : RowWords<float>::N) * P * Z * 4;
+}
+
 // Launches the decoder for `ncw` codewords on `stream`.  `rule` is 0
 // (min-sum), 1 (offset-min-sum) or 2 (sum-product); `bf16_messages` selects
-// the scratch's element type (min-sum family only).  `codewords_per_block`
-// P = 1 runs one block per codeword with the scratch laid out (ncw, E, Z);
-// P > 1 runs ceil(ncw / P) blocks of the packed kernel, whose scratch must
-// hold ceil(ncw / P) * P * E * Z elements (a block's share is (E, P*Z)).  Does
-// not synchronise and allocates nothing.  Returns cudaGetLastError().
+// the message type (min-sum family only).  `codewords_per_block` P = 1 runs
+// one block per codeword, P > 1 runs ceil(ncw / P) blocks of the packed
+// kernel.  `scratch` holds ceil(ncw / P) blocks' shares of
+// ldpc_layered_scratch_bytes each.  Does not synchronise and allocates
+// nothing.  Returns cudaGetLastError().
 extern "C" int ldpc_layered_decode(
-    const void* llr, void* bits, void* ok, void* iters, void* c2v,
+    const void* llr, void* bits, void* ok, void* iters, void* scratch,
     const void* edges, const void* row_start, int ncw, int Z, int nc, int nr,
     int E, int out_cols, int d_input, int fill_lo, int fill_hi, int iterations,
     int early_termination, int rule, int bf16_messages,
@@ -316,8 +403,8 @@ extern "C" int ldpc_layered_decode(
   a.alpha = alpha; a.beta = beta; a.alpha0 = alpha0; a.n0 = n0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (rule == RULE_SUM_PRODUCT)
-    return launch<true, float>(llr, bits, ok, iters, c2v, edges, row_start, ncw, P, a, s);
+    return launch<true, float>(llr, bits, ok, iters, scratch, edges, row_start, ncw, P, a, s);
   if (bf16_messages)
-    return launch<false, __nv_bfloat16>(llr, bits, ok, iters, c2v, edges, row_start, ncw, P, a, s);
-  return launch<false, float>(llr, bits, ok, iters, c2v, edges, row_start, ncw, P, a, s);
+    return launch<false, __nv_bfloat16>(llr, bits, ok, iters, scratch, edges, row_start, ncw, P, a, s);
+  return launch<false, float>(llr, bits, ok, iters, scratch, edges, row_start, ncw, P, a, s);
 }

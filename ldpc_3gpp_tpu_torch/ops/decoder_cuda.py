@@ -67,7 +67,7 @@ LAUNCHES = {name: 0 for name in KERNEL_NAMES.values()}
 LAUNCHES_BY_P = {}
 
 # Argument types of ``ldpc_layered_decode``: seven pointers (llr, bits, ok,
-# iters, c2v, edges, row_start), fourteen ints (ncw, Z, nc, nr, E, out_cols,
+# iters, scratch, edges, row_start), fourteen ints (ncw, Z, nc, nr, E, out_cols,
 # d_input, fill_lo, fill_hi, iterations, early_termination, rule,
 # bf16_messages, codewords_per_block), alpha, beta, alpha0, n0 and the stream.
 DECODE_ARGTYPES = (
@@ -90,6 +90,7 @@ ARGTYPES = {
         "shared_bytes": [ctypes.c_int] * 5,  # Z, nc, nr, E, P
         # rule, bf16_messages, P, Z, nc, nr, E
         "blocks_per_sm": [ctypes.c_int] * 7,
+        "scratch_bytes": [ctypes.c_int] * 6,  # rule, bf16_messages, Z, nr, E, P
     },
     "ldpc_flooding": {
         "decode": FLOODING_DECODE_ARGTYPES, "max_degree": [], "max_z": [],
@@ -157,6 +158,33 @@ def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1) ->
         return _align16((nc + E) * Z * 4) + E * 16 + (nr + nc + 2) * 4
     sets = 2 if schedule == "flooding" else 1
     return _align16(sets * P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
+
+
+# 32-bit words per (row, lane) of the layered min-sum family's compressed
+# messages (RowWords in csrc/ldpc_bp.cuh): m1s, m2s and the meta word with
+# float32 messages; m1s | m2s as bfloat16 bits, and meta, with bfloat16.
+COMPRESSED_WORDS = {torch.float32: 3, torch.bfloat16: 2}
+
+
+def scratch_shape(params: LDPCParams, n: int, schedule: str = "layered",
+                  algorithm: str = "min-sum", message_dtype: str = "float32",
+                  P: int = 1):
+    """(shape, dtype) of the message scratch that ``decode`` gives a launch
+    of ``n`` codewords with ``P`` codewords per block, or None where the
+    launch keeps its messages on chip (the one-codeword flooding kernel).
+    One entry per block of P codewords (the last block's share is whole):
+    the layered min-sum family keeps each row's messages in compressed
+    form, (blocks, num_rows, COMPRESSED_WORDS, P*Z) int32 words in
+    processing order; sum-product and the packed flooding kernel keep one
+    message per edge, (blocks, E, P*Z) of the message type."""
+    dtype = resolve_message_dtype(message_dtype, algorithm)
+    if schedule == "flooding" and P == 1:
+        return None
+    Z, E = params.Z_c, len(params.edges[0])
+    blocks = -(-n // P)
+    if schedule == "layered" and algorithm != "sum-product":
+        return (blocks, params.num_rows, COMPRESSED_WORDS[dtype], P * Z), torch.int32
+    return (blocks, E, P * Z), dtype
 
 
 def flooding_on_chip(params: LDPCParams) -> bool:
@@ -400,7 +428,12 @@ def launch_shape(params: LDPCParams, n: int, schedule: str,
 @functools.lru_cache(maxsize=None)
 def _library(name: str):
     """The built library of kernel ``name`` with its functions declared."""
-    lib = kernels_build.load(name)
+    return declare(kernels_build.load(name), name)
+
+
+def declare(lib, name: str):
+    """``lib`` (a ctypes library of kernel ``name``) with its functions'
+    argument and result types set."""
     for fn, argtypes in ARGTYPES[name].items():
         f = getattr(lib, f"{name}_{fn}")
         f.argtypes = argtypes
@@ -559,6 +592,7 @@ def decode(
     codewords_per_block: int = 0,
     *,
     _threads: int = 0,
+    _lib=None,
 ) -> DecodeResult:
     """BP decode of (..., nci*Z) LLRs; CUDA tensors run the kernel.
 
@@ -577,10 +611,9 @@ def decode(
     reproduces the trajectory of ``ops.decoder_fast`` / MATLAB
     comm.LDPCDecoder (same rule, same syndrome-check points).
 
-    message_dtype='bfloat16' (min-sum family only) stores the per-edge check
-    messages in bfloat16, halving the scratch and its traffic; arithmetic
-    stays float32 and messages are only rounded on store.  Sum-product is
-    float32-only, so that it stays bit-exact.
+    message_dtype='bfloat16' (min-sum family only) stores the check messages
+    in bfloat16; arithmetic stays float32 and messages are only rounded on
+    store.  Sum-product is float32-only, so that it stays bit-exact.
 
     layer_order: 'reversed' (default), 'natural' or a permutation tuple;
     ignored by the flooding schedule, whose trajectory is order-invariant.
@@ -596,14 +629,19 @@ def decode(
     ``_threads`` (internal, for ``tools/flooding_shapes.py``, which times
     the alternatives to the block-size rule): a one-codeword flooding
     launch's threads per block instead of ``flooding_threads``'s; 0 keeps
-    the rule.  Results do not depend on it.
+    the rule.  Results do not depend on it.  ``_lib`` (internal, for
+    ``tools/layered_probe.py``): a library of the schedule's kernel to launch
+    instead of the built one (``declare``d); None keeps the built one.
 
     A CUDA tensor launches the kernel on the current stream without
     synchronising (or raises); a CPU tensor runs ``decode_plain``.  The
-    kernels keep the per-edge messages in a scratch tensor of E*Z elements
-    per codeword (474 KiB in float32 at BG1 Z=384), allocated here, except
-    the one-codeword flooding kernel, which keeps them in the shared memory
-    of a block or of a cluster (``flooding_layout``).
+    scratch for the messages is allocated here (``scratch_shape``): the
+    layered min-sum family keeps three 32-bit words per row and lane (two
+    with bfloat16 messages), 207 KiB per codeword at BG1 Z=384 (138 KiB in
+    bfloat16); sum-product and the packed flooding kernel keep E*Z messages
+    per codeword (474 KiB in float32 at BG1 Z=384); the one-codeword flooding
+    kernel keeps them in the shared memory of a block or of a cluster
+    (``flooding_layout``) and has no scratch.
     """
     dtype, nci, out_cols, alpha_schedule = _check_arguments(
         params, llr, algorithm, schedule, message_dtype, channel_format,
@@ -629,7 +667,7 @@ def decode(
     Z, nc, nr = params.Z_c, params.num_cols, params.num_rows
     E = len(params.edges[0])
     name = KERNEL_NAMES[schedule]
-    lib = _library(name)
+    lib = _library(name) if _lib is None else _lib
     max_deg = _graph_plan(params, row_seq)[2]
     if (max_deg > getattr(lib, name + "_max_degree")()
             or Z > getattr(lib, name + "_max_z")()):
@@ -668,12 +706,13 @@ def decode(
     iters = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         # scratch for the check-to-variable messages; never zero-filled
-        # (sweep 0 does not read it).  A packed block lays its share out
-        # (E, P*Z), so the last block's share is whole even where n % P != 0.
-        # The one-codeword flooding kernel keeps its messages in shared
-        # memory and has no scratch.
-        c2v = None if layout != LAYOUT_SCRATCH else torch.empty(
-            (-(-n // P) * P, E, Z), dtype=dtype, device=dev)
+        # (sweep 0 does not read it)
+        spec = scratch_shape(params, n, schedule, algorithm, message_dtype, P)
+        scratch = None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
+        if scratch is not None and not flooding:
+            share = lib.ldpc_layered_scratch_bytes(
+                _RULE_CODES[algorithm], int(dtype == torch.bfloat16), Z, nr, E, P)
+            assert share * spec[0][0] == scratch.numel() * scratch.element_size()
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
         block = ([P, layout, shape["threads"], *_cluster_sizes(params, layout)]
@@ -682,7 +721,7 @@ def decode(
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, name + "_decode")(
                 flat.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-                iters.data_ptr(), None if c2v is None else c2v.data_ptr(),
+                iters.data_ptr(), None if scratch is None else scratch.data_ptr(),
                 *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
                 int(channel_format == "d"), lo, hi, int(iterations),
                 int(bool(early_termination)), _RULE_CODES[algorithm],

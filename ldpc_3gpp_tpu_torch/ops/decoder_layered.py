@@ -18,6 +18,10 @@ comm.LDPCDecoder counting — NRLDPCDecoder.m:120).
 
 All three check rules (sum-product, min-sum, offset-min-sum) come from
 ``decoder_fast._check_messages``, shared with the flooding schedule.
+
+``compress_row`` and ``expand_row`` model, for the tests, the compressed
+words in which the CUDA kernel keeps the min-sum family's messages of a row
+between sweeps (csrc/ldpc_bp.cuh); ``decode`` does not use them.
 """
 from __future__ import annotations
 
@@ -163,3 +167,61 @@ def decode(
 
     bits = (torch.stack(totals, dim=-2) < 0).reshape(batch_shape + (nc * Z,))
     return DecodeResult(bits=bits.to(torch.int8), parity_ok=done, iterations=used)
+
+
+# Bit positions of the compressed words (csrc/ldpc_bp.cuh): sign bits of the
+# row's v_i in bits 0..deg-1 of ``meta``, the index of the first edge at the
+# smallest magnitude in bits MSG_IDX_SHIFT..31.
+MSG_IDX_SHIFT = 27
+_SIGN = -(1 << 31)  # the sign bit of an int32
+_MAG = (1 << 31) - 1
+
+
+def compress_row(v, algorithm, alpha, beta, message_dtype="float32"):
+    """The compressed words of one check row of the layered min-sum family.
+
+    ``v``: the row's variable-to-check values, a list of (..., Z) float32
+    tensors in edge order; ``alpha`` and ``beta`` as ``_check_messages``
+    takes them (f32 values).  Returns int32 tensors (m1s, m2s, meta): the
+    float32 bits of the scaled (min-sum) or offset (offset-min-sum) two
+    smallest magnitudes with the row's sign product folded in, each rounded
+    to bfloat16 for ``message_dtype='bfloat16'``, and the meta word.
+    Magnitudes are compared as integers and signs are XORs of sign bits, as
+    in the kernel.
+    """
+    if algorithm not in ("min-sum", "offset-min-sum"):
+        raise ValueError("the compressed form is for the min-sum family")
+    dtype = resolve_message_dtype(message_dtype, algorithm)
+    bits = [ve.contiguous().view(torch.int32) for ve in v]
+    mags = [b & _MAG for b in bits]
+    m1, m2 = mags[0], torch.full_like(mags[0], 0x7F7FFFFF)
+    idx = torch.zeros_like(m1)
+    sx = bits[0]
+    meta = (bits[0] >> 31) & 1
+    for i in range(1, len(v)):
+        idx = torch.where(mags[i] < m1, i, idx)
+        m2 = torch.minimum(m2, torch.maximum(m1, mags[i]))
+        m1 = torch.minimum(m1, mags[i])
+        sx = sx ^ bits[i]
+        meta = meta | (((bits[i] >> 31) & 1) << i)
+    m1f, m2f = m1.view(torch.float32), m2.view(torch.float32)
+    if algorithm == "min-sum":
+        m1f, m2f = alpha * m1f, alpha * m2f
+    else:
+        m1f = torch.clamp_min(m1f - beta, 0.0)
+        m2f = torch.clamp_min(m2f - beta, 0.0)
+    ssign = sx & _SIGN
+    words = []
+    for m in (m1f, m2f):
+        m = m.to(dtype).to(torch.float32)  # bf16(m ^ s) == bf16(m) ^ s
+        words.append(m.view(torch.int32) ^ ssign)
+    return words[0], words[1], meta | (idx << MSG_IDX_SHIFT)
+
+
+def expand_row(m1s, m2s, meta, deg):
+    """The ``deg`` float32 messages of a row from its compressed words:
+    edge i gets m2s if it is the row's min index, else m1s, with the sign
+    bit of its v_i flipped in."""
+    idx = (meta >> MSG_IDX_SHIFT) & 31
+    return [(torch.where(idx == i, m2s, m1s) ^ (((meta >> i) & 1) << 31))
+            .view(torch.float32) for i in range(deg)]

@@ -8,6 +8,13 @@ run from the root of a checkout builds that checkout's kernels and times, on
 events:
 
 - V1: layered min-sum, BG1 A=8424 Z=384, 1,024 codewords at 1.0 dB, 12
+  iterations; at the same shape V1' (offset-min-sum, 'cw' in and out,
+  natural order), V4-layered (run to the budget) and V6-layered (bfloat16
+  messages);
+- V7-layered and V7-flooding: the packed kernels at config #1's launch,
+  BG2 A=100 Z=20, 2,048 codewords at 2.0 dB, min-sum, 4 codewords per
+  block, 12 and 50 iterations;
+- V2: layered sum-product, BG2 A=2048 Z=208, 1,024 codewords at 2.0 dB, 8
   iterations;
 - V3-SP and V3-NMS: flooding sum-product and min-sum, BG2 A=3842 Z=208,
   2,048 codewords at 1.0 dB, 8 iterations;
@@ -18,7 +25,8 @@ events:
 then one ``snr_vs_a`` call at A=8000 (``MonteCarlo.run`` of 256 blocks at
 -1.6 dB): host ms per call, and from ``torch.profiler`` the flooding kernel's
 ms per call and the device's idle share.  Prints one JSON line with the
-registers ``ptxas`` reported and the card's name and power limit.  To compare
+registers, stack and spills ``ptxas`` reported and the card's name and power
+limit.  To compare
 a change with its parent, unpack the parent into a directory the repository
 ignores, copy this file beside its ``chip_smoke.py``, and run parent, change,
 change, parent in one go on one card.  Needs a CUDA device.
@@ -55,13 +63,24 @@ def main() -> int:
     kernels_build.build()
     registers = [ln.strip() for n in kernels_build.kernel_names()
                  for ln in kernels_build.build_log(n).splitlines()
-                 if "registers" in ln or "Compiling entry" in ln]
+                 if "registers" in ln or "Compiling entry" in ln or "stack frame" in ln]
     ds = dict(channel_format="d", output_format="sys")
     flooding = dict(schedule="flooding", **ds)
     sweep_a8000 = dict(BG=1, A=8000, G=24000, Q_m=2)
     out = {"root": root, "card": card, "registers": registers}
+    v1 = dict(iterations=12, algorithm="min-sum", **ds)
     for name, fields, esn0_db, n, reps, kw in (
-        ("V1", cs.FLAGSHIP, 1.0, 1024, 50, dict(iterations=12, algorithm="min-sum", **ds)),
+        ("V1", cs.FLAGSHIP, 1.0, 1024, 50, v1),
+        ("V1'", cs.FLAGSHIP, 1.0, 1024, 20, dict(
+            iterations=12, algorithm="offset-min-sum", layer_order="natural")),
+        ("V4-layered", cs.FLAGSHIP, 1.0, 1024, 10, dict(v1, early_termination=False)),
+        ("V6-layered", cs.FLAGSHIP, 1.0, 1024, 20, dict(v1, message_dtype="bfloat16")),
+        ("V7-layered", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 50,
+         dict(v1, codewords_per_block=cs.CONFIG1_PACK)),
+        ("V7-flooding", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 20,
+         dict(iterations=50, algorithm="min-sum", codewords_per_block=cs.CONFIG1_PACK,
+              **flooding)),
+        ("V2", cs.P3_FIELDS, 2.0, 1024, 20, dict(iterations=8, algorithm="sum-product", **ds)),
         ("V3-SP", cs.P2_FIELDS, 1.0, 1024, 20,
          dict(iterations=8, algorithm="sum-product", **flooding)),
         ("V3-NMS", cs.P2_FIELDS, 1.0, 1024, 20,
@@ -73,6 +92,8 @@ def main() -> int:
     ):
         params = LDPCParams(**fields)
         d, _ = cs.noisy_d_tilde(params, "QPSK", esn0_db, n, 21, dev)
+        if kw.get("channel_format") != "d":
+            d = cs.codeword_llrs(params, d[:, 0])
         out[name] = [cs.time_ms(lambda: decoder_cuda.decode(params, d, **kw), reps=reps)
                      for _ in range(5)]
         del d
