@@ -345,8 +345,12 @@ def phase_tie_cases(dev, check):
     Z=20; offset-min-sum with beta = 0.5, where the smallest magnitudes of
     the grid become 0 and messages +-0.0 ('cw' in and out, natural order);
     bfloat16 messages; the packed kernel with CONFIG1_PACK codewords per
-    block.  Around the waterfall, so that codewords stop at different
-    sweeps.  Returns the share of LLRs at the smallest level, per shape."""
+    block.  Layered sum-product (V2, its rows at their own degree with their
+    messages staged ahead) on the same LLRs: every BG2 degree at Z=20 (and
+    packed), BG1's rows of 19 at the flagship shape (3 sweeps: its plain
+    version takes seconds per sweep there).  Around the waterfall, so that
+    codewords stop at different sweeps.  Returns the share of LLRs at the
+    smallest level, per shape."""
     from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
 
     ds = dict(channel_format="d", output_format="sys")
@@ -363,7 +367,11 @@ def phase_tie_cases(dev, check):
               message_dtype="bfloat16", **ds)
         check("V6-layered", params, cw, iterations=ITERATIONS, message_dtype="bfloat16",
               early_termination=False, **oms)
+        sp = dict(algorithm="sum-product", iterations=3 if params.Z_c == 384 else P2_ITERATIONS)
+        check("V2", params, d, **sp, **ds)
+        check("V2", params, cw, early_termination=False, layer_order="natural", **sp)
         if params.Z_c == 20:
+            check("V7-layered", params, d, codewords_per_block=CONFIG1_PACK, **sp, **ds)
             check("V7-layered", params, d, iterations=ITERATIONS, algorithm="min-sum",
                   codewords_per_block=CONFIG1_PACK, **ds)
             check("V7-layered", params, cw, iterations=ITERATIONS, message_dtype="bfloat16",
@@ -534,6 +542,51 @@ def phase_packed_vs_plain(dev, tally):
     if mixed < len(mixes) // 2:
         raise AssertionError(f"the LLRs do not mix sweeps within blocks: {mixes}")
     return compared, mixes, plain_cases
+
+
+# The packed flooding kernel's cases beyond ``packed_vs_plain``: (base graph,
+# Z, codewords per block, the layout they must run in).
+PACKED_FLOODING_CASES = ((2, 20, (2, 4, 8), 1), (1, 96, (2,), 0))
+
+
+def phase_packed_flooding(dev, tally):
+    """The packed flooding kernel, messages on chip (BG2 Z=20, P = 2, 4, 8)
+    and in its scratch form (BG1 Z=96, P=2), on ``packed_vs_plain``'s mix of
+    53 codewords (whole blocks that pass at once, whole blocks that never
+    pass, blocks whose codewords stop at different sweeps, a ragged last
+    block): sum-product, min-sum, offset-min-sum and min-sum with bfloat16
+    messages, early termination ('d' in, 'sys' out) and, per rule, a run to
+    budget ('cw' in and out).  Each equals the plain version (tolerance 0).
+    Returns the launch shapes."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.tools.small_z import noisy_llrs, params_for_z
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = []
+    for bg, Z, ps, layout in PACKED_FLOODING_CASES:
+        params = params_for_z(bg, Z)
+        d = torch.cat([noisy_llrs(params, 16, 12.0, 60 + Z, dev),
+                       noisy_llrs(params, 16, -12.0, 61 + Z, dev),
+                       noisy_llrs(params, 11, 0.5, 62 + Z, dev),
+                       noisy_llrs(params, 10, 1.5, 63 + Z, dev)])
+        cw = codeword_llrs(params, d)
+        for rule, dtype in (("sum-product", "float32"), ("min-sum", "float32"),
+                            ("offset-min-sum", "float32"), ("min-sum", "bfloat16")):
+            base = dict(schedule="flooding", algorithm=rule, message_dtype=dtype,
+                        iterations=P2_ITERATIONS)
+            for llr, kw in ((d, dict(base, channel_format="d", output_format="sys")),
+                            (cw, dict(base, early_termination=False))):
+                want = decoder_cuda.decode_plain(params, llr, **kw)
+                for P in ps:
+                    shape = decoder_cuda.launch_shape(params, llr.shape[0], "flooding", P, sms)
+                    if shape["layout"] != layout:
+                        raise AssertionError(f"packed flooding at Z={Z}, P={P}: {shape}")
+                    got = decoder_cuda.decode(params, llr, codewords_per_block=P, **kw)
+                    torch.cuda.synchronize()
+                    tally.add("V7-flooding", require_equal(got, want, dict(kw, Z=Z, P=P)))
+        shapes += [dict(bg=bg, Z=Z, **decoder_cuda.launch_shape(params, 53, "flooding", P, sms))
+                   for P in ps]
+    return shapes
 
 
 def phase_lifting_sweep(dev):
@@ -722,10 +775,12 @@ def phase_path_5(dev):
             blocks=sum(pt.blocks for pt in packed_pts),
             blocks_per_s=sum(pt.blocks for pt in packed_pts) / seconds, launches=launches,
             launches_by_P=launches_by_p(),
-            packed_launches=by_p.get(("ldpc_flooding", CONFIG1_PACK, 0), 0))
+            packed_launches=by_p.get(
+                ("ldpc_flooding", CONFIG1_PACK, decoder_cuda.LAYOUT_ON_CHIP), 0))
         if (differing or len(packed_pts) != len(pts) or packed_text != text
                 or launches != out["bler_vs_snr"]["launches"]
-                or by_p != {("ldpc_flooding", CONFIG1_PACK, 0): launches["ldpc_flooding"]}):
+                or by_p != {("ldpc_flooding", CONFIG1_PACK, decoder_cuda.LAYOUT_ON_CHIP):
+                            launches["ldpc_flooding"]}):
             raise AssertionError(
                 f"packed sweep differs from the one-codeword sweep: "
                 f"{out['bler_vs_snr_explicit_P']}")
@@ -1057,15 +1112,16 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
 
     Beside the bound, the work of the kernel's own design for
     ``measured_rate``; ``shape`` is ``decoder_cuda.launch_shape``'s record.
-    Layered and packed flooding: a codeword's ``scratch_bytes`` (its share of
-    ``decoder_cuda.scratch_shape``: the layered min-sum family's compressed
-    words, nr*Z*12 B, or 8 with bfloat16 messages; else E*Z messages) written
-    once per update sweep and read once per update sweep after the first.
-    One-codeword flooding: a message phase per update sweep plus the one whose vote stops
+    Layered: a codeword's ``scratch_bytes`` (its share of
+    ``decoder_cuda.scratch_shape``: the min-sum family's compressed words,
+    nr*Z*12 B, or 8 with bfloat16 messages; else E*Z messages) written once
+    per update sweep and read once per update sweep after the first.
+    Flooding: a message phase per update sweep plus the one whose vote stops
     the codeword (its messages are discarded), a parity-only pass where the
-    budget is reached; messages in shared memory (the block's or the
-    cluster's), written by the message phase and read by the column phase and
-    by the next message phase."""
+    budget is reached; messages written by the message phase and read by the
+    column phase and by the next message phase, in shared memory (the
+    block's or the cluster's), or in the packed kernel's scratch (layout
+    0)."""
     n = res.iterations.numel()
     Z, E = params.Z_c, len(params.edges[0])
     used = res.iterations.to(torch.int64).reshape(-1)
@@ -1088,19 +1144,22 @@ def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered"
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     reads = updates - (updates > 0).to(torch.int64)  # sweep 0 reads no message
-    if schedule == "flooding" and shape is not None and shape["codewords_per_block"] == 1:
+    if schedule == "flooding" and shape is not None:
         # message phases: the updates, and the discarded one of a codeword
         # whose vote passed before the budget
         stopped = passed & (used < budget) if early_termination else torch.zeros_like(passed)
         phases = int((updates + stopped.to(torch.int64)).sum())
         parity_only = int((~stopped).sum())
-        # per edge and lane, all in shared memory (a cluster's included): a
-        # rotated total read per phase, the message read (after sweep 0) and
-        # write of a message phase, and the column phase's message read
-        shared = E * Z * (2 * phases + parity_only + int(reads.sum()) + total_updates)
+        # per edge and lane, all in shared memory (a cluster's included) but
+        # for the packed kernel's scratch form: a rotated total read per
+        # phase, the message read (after sweep 0) and write of a message
+        # phase, and the column phase's message read
+        messages = E * Z * (phases + int(reads.sum()) + total_updates)
+        in_scratch = shape["layout"] == 0
+        shared = E * Z * (phases + parity_only) + (0 if in_scratch else messages)
         work = dict(update_edge_lanes=E * Z * phases,
                     syndrome_edge_lanes=E * Z * parity_only,
-                    shared_accesses=shared, scratch_bytes=0)
+                    shared_accesses=shared, scratch_bytes=4 * messages if in_scratch else 0)
     else:
         work = dict(update_edge_lanes=E * Z * total_updates,
                     syndrome_edge_lanes=E * Z * total_syndromes,
@@ -1591,20 +1650,35 @@ def ptxas_entries(log):
     return out
 
 
-def check_layered_registers():
-    """The layered and packed kernels' min-sum-family instantiations (float
-    and bfloat16 messages) fit two 384-thread blocks per SM: at most 80
-    registers, no stack, no spills.  Returns their ``ptxas`` records."""
+def check_registers():
+    """``ptxas -v`` of the kernels held to a register budget, each without
+    stack or spills: the layered and packed kernels' min-sum-family
+    instantiations (float and bfloat16 messages) at most 80 registers (two
+    384-thread blocks per SM); the one-codeword layered sum-product kernel
+    (V2) at most 72 (four 224-thread blocks per SM at P3's shape); the
+    packed flooding kernel's six instantiations (three rules and message
+    types, messages on chip or in a scratch) at most 64 (1,024 threads per
+    SM).  Returns their records by group."""
     from ldpc_3gpp_tpu_torch import kernels_build
 
-    entries = {k: v for k, v in ptxas_entries(kernels_build.build_log("ldpc_layered")).items()
-               if "ldpc_layered" in k and "ILb0E" in k}  # SUM_PRODUCT = false
-    bad = {k: v for k, v in entries.items()
-           if v.get("registers", 999) > 80 or v.get("stack", 1) or v.get("spill_stores", 1)
-           or v.get("spill_loads", 1)}
-    if len(entries) != 4 or bad:
-        raise AssertionError(f"layered min-sum kernels spill or miss: {entries}")
-    return entries
+    layered = ptxas_entries(kernels_build.build_log("ldpc_layered"))
+    flooding = ptxas_entries(kernels_build.build_log("ldpc_flooding"))
+    groups = {  # name: (entries, most registers, count)
+        "layered_min_sum_family": ({k: v for k, v in layered.items()
+                                    if "ldpc_layered" in k and "ILb0E" in k}, 80, 4),
+        "V2": ({k: v for k, v in layered.items()
+                if k.startswith("_Z19ldpc_layered_kernelILb1EfE")}, 72, 1),
+        "packed_flooding": ({k: v for k, v in flooding.items()
+                             if "ldpc_flooding_packed_kernel" in k}, 64, 6),
+    }
+    for name, (entries, most, count) in groups.items():
+        bad = {k: v for k, v in entries.items()
+               if v.get("registers", 999) > most or v.get("stack", 1)
+               or v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+        if len(entries) != count or bad:
+            raise AssertionError(f"{name}: over {most} registers, stack, spills or "
+                                 f"missing: {entries}")
+    return {name: entries for name, (entries, _, _) in groups.items()}
 
 
 def main() -> int:
@@ -1632,7 +1706,7 @@ def main() -> int:
     ptxas = [ln for n in libs for ln in kernels_build.build_log(n).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": watch.lap(), "kernels": sorted(libs),
-          "ptxas": ptxas, "layered_min_sum_family": check_layered_registers()})
+          "ptxas": ptxas, "registers": check_registers()})
 
     tally = Tally()
     edges, config1, ties = phase_kernel_vs_plain(dev, tally)
@@ -1642,12 +1716,14 @@ def main() -> int:
           "config1_launch": config1, "tie_cases_llrs_at_smallest_level_by_Z": ties})
 
     compared, mixes, plain_cases = phase_packed_vs_plain(dev, tally)
+    packed_flooding = phase_packed_flooding(dev, tally)
     emit({"phase": "packed_vs_plain", "seconds": watch.lap(),
           "cases": tally.cases["V7-layered"] + tally.cases["V7-flooding"],
           "max_abs_diff": max(tally.worst["V7-layered"], tally.worst["V7-flooding"]),
           "tolerance": 0, "codewords": 53, "plain_version_cases": plain_cases,
           "codewords_per_block_by_Z": compared,
-          "sweeps_high_noise_kinds": mixes})
+          "sweeps_high_noise_kinds": mixes,
+          "packed_flooding_shapes": packed_flooding})
 
     emit({"phase": "phi", "seconds": watch.lap(), **phase_phi(dev)})
 
@@ -1718,6 +1794,8 @@ def main() -> int:
     per_sm = {v: times[v]["blocks_per_sm"] for v in ("V1", "V1'", "V4-layered", "V5", "V6-layered")}
     if set(per_sm.values()) != {2}:
         raise AssertionError(f"layered min-sum kernels not at 2 blocks per SM: {per_sm}")
+    if times["V2"]["blocks_per_sm"] != 4:
+        raise AssertionError(f"V2 not at 4 blocks per SM at P3's shape: {times['V2']}")
 
     k2, rates = phase_op_rates(dev, times)
     emit({"phase": "op_rates", "seconds": watch.lap(), "card": card, "K2": k2,

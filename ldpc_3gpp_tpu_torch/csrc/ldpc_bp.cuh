@@ -1,6 +1,6 @@
 // What the layered and the flooding BP decoder kernels share: the argument
-// block, the graph's edge record, the sum-product phi, the message storage
-// types and the check-node update of one base row.
+// block, the graph's edge record, the sum-product phi and the layered kernels'
+// check-node updates of one base row.
 //
 // Bit-exactness.  Every float operation is an explicitly rounded intrinsic
 // (__fsub_rn, __fmul_rn, __fadd_rn, __fdiv_rn, __fmaf_rn), so a multiply-add
@@ -55,28 +55,21 @@ __device__ __forceinline__ int rot(int z, int shift, int Z) {
 }
 
 // Lane z of every column of the totals from the channel LLRs of one codeword
-// (`src`), in variable coordinates; with ADD, plus the column sums `acc`
-// (the flooding update totals = llr + acc).  'd' input: the 2Z punctured
-// positions are +0.0 and the filler range of d is pinned.  The format is
-// tested once, outside the column loops, so that the loads pipeline.
-template <bool ADD>
-__device__ __forceinline__ void load_totals(float* totals, const float* acc,
-                                            const float* src, int z,
+// (`src`), in variable coordinates.  'd' input: the 2Z punctured positions
+// are +0.0 and the filler range of d is pinned.  The format is tested once,
+// outside the column loops, so that the loads pipeline.
+__device__ __forceinline__ void load_totals(float* totals, const float* src, int z,
                                             const DecodeArgs& a) {
   const int Z = a.Z, nc = a.nc;
   if (a.d_input) {
-    totals[z] = ADD ? __fadd_rn(0.0f, acc[z]) : 0.0f;
-    totals[Z + z] = ADD ? __fadd_rn(0.0f, acc[Z + z]) : 0.0f;
+    totals[z] = 0.0f;
+    totals[Z + z] = 0.0f;
     for (int c = 2; c < nc; ++c) {
       const int j = (c - 2) * Z + z;
-      const float v = (j >= a.fill_lo && j < a.fill_hi) ? FILLER_LLR : src[j];
-      totals[c * Z + z] = ADD ? __fadd_rn(v, acc[c * Z + z]) : v;
+      totals[c * Z + z] = (j >= a.fill_lo && j < a.fill_hi) ? FILLER_LLR : src[j];
     }
   } else {
-    for (int c = 0; c < nc; ++c) {
-      const float v = src[c * Z + z];
-      totals[c * Z + z] = ADD ? __fadd_rn(v, acc[c * Z + z]) : v;
-    }
+    for (int c = 0; c < nc; ++c) totals[c * Z + z] = src[c * Z + z];
   }
 }
 
@@ -157,131 +150,79 @@ __device__ __forceinline__ float phi_f32(float x) {
   return -log_f32(tanh_f32(__fmul_rn(x, 0.5f)));
 }
 
-// ---- check-to-variable message storage: float32, or bfloat16 rounded on
-// store (round to nearest even) and widened on load; arithmetic is float32.
-
-__device__ __forceinline__ float msg_load(const float* p) { return *p; }
-__device__ __forceinline__ void msg_store(float* p, float m) { *p = m; }
-__device__ __forceinline__ float msg_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void msg_store(__nv_bfloat16* p, float m) {
-  *p = __float2bfloat16_rn(m);
-}
-
-// ---- one base row's check-node update, by the thread that owns check z ----
+// ---- the layered sum-product row, by the thread that owns check z --------
 //
 // Reads the row's totals (rotated by address) and, unless `first` (sweep 0:
-// all messages are zero), its stored messages; computes the extrinsic
-// messages by the rule; stores them (rounded to MSG); and hands each
-// unrounded message to the schedule:
-//   layered:  totals[idx] = (total - old message) + message, in place;
-//   flooding: acc[idx] is assigned by a column's first edge and added to by
-//             the later ones (rows run in ascending order, one barrier apart).
-// The row is unrolled to MAX_DEG predicated slots so that its inputs stay in
-// registers and all its loads are issued before the first is used.
-// Returns the XOR of the sign bits of the totals read (the row's parity).
-// The layered min-sum family keeps its messages in compressed form and
-// updates a row with layered_row_compressed below instead.
-template <bool SUM_PRODUCT, bool FLOODING, typename MSG>
-__device__ __forceinline__ unsigned check_row(
-    float* totals, float* acc, MSG* c2v, const int4* edges, int e0, int deg,
-    int z, int Z, bool first, float alpha_t, int offset_rule, float beta) {
-  static_assert(SUM_PRODUCT || FLOODING, "layered min-sum: layered_row_compressed");
-  float v[MAX_DEG];
-  unsigned par = 0;
-  if constexpr (!SUM_PRODUCT) {
-    // Magnitudes are compared as integers (bits & 0x7fffffff), the two
-    // smallest kept by a min/max tournament, signs are XORs of sign bits.
-    unsigned sx = 0, m1 = MAG_INF, m2 = MAG_INF;
+// all messages are zero), its old messages; v_i = total - old message.
+// T = sum of phi(|v_i|) in edge order; the extrinsic magnitude of an edge is
+// phi(max(T - phi_i, 1e-9)); signs are `v < 0` tests multiplied up, here as
+// the parity of a bit mask.  Stores each new message at c2v + the edge's
+// offset and the total v_i + message in place.  Returns the XOR of the sign
+// bits of the totals read (the row's parity).  The row is unrolled to SLOTS
+// >= deg slots, predicated where SLOTS > deg.  v_i waits for the second half
+// in the total's own place (thread z alone touches lane z of its row's
+// columns until the row barrier), not in registers: so a row of ten slots
+// stays within the 72 registers of four 224-thread blocks per SM.
+template <int SLOTS>
+__device__ __forceinline__ unsigned layered_sp_row_slots(
+    float* totals, float* c2v, const int4* edges, int e0, int deg, int z, int Z,
+    bool first) {
+  float ph[SLOTS];
+  unsigned par = 0, neg = 0;
+  float T = 0.0f;
 #pragma unroll
-    for (int i = 0; i < MAX_DEG; ++i) {
-      if (i < deg) {
-        const int4 ed = edges[e0 + i];
-        const float t = totals[ed.x + rot(z, ed.y, Z)];
-        par ^= __float_as_uint(t);
-        const float ve = first ? t : __fsub_rn(t, msg_load(c2v + ed.z));
-        v[i] = ve;
-        const unsigned b = __float_as_uint(ve);
-        const unsigned mg = b & MAG_MASK;
-        sx ^= b;
-        if (i == 0) {
-          m1 = mg;
-        } else {
-          m2 = min(m2, max(m1, mg));
-          m1 = min(m1, mg);
-        }
-      }
+  for (int i = 0; i < SLOTS; ++i) {
+    if (i < deg) {
+      const int4 ed = edges[e0 + i];
+      const int idx = ed.x + rot(z, ed.y, Z);
+      const float t = totals[idx];
+      par ^= __float_as_uint(t);
+      const float ve = first ? t : __fsub_rn(t, c2v[ed.z]);
+      totals[idx] = ve;
+      neg |= (ve < 0.0f ? 1u : 0u) << i;
+      const float p = phi_f32(fabsf(ve));
+      ph[i] = p;
+      T = i == 0 ? p : __fadd_rn(T, p);
     }
-    float m1f, m2f;
-    if (offset_rule) {
-      m1f = fmaxf(__fsub_rn(__uint_as_float(m1), beta), 0.0f);
-      m2f = fmaxf(__fsub_rn(__uint_as_float(m2), beta), 0.0f);
-    } else {
-      m1f = __fmul_rn(alpha_t, __uint_as_float(m1));
-      m2f = __fmul_rn(alpha_t, __uint_as_float(m2));
-    }
-    const unsigned ssign = sx & SIGN_BIT;
-    const unsigned m1s = __float_as_uint(m1f) ^ ssign;
-    const unsigned m2s = __float_as_uint(m2f) ^ ssign;
+  }
+  const unsigned sx = __popc(neg) & 1u;
 #pragma unroll
-    for (int i = 0; i < MAX_DEG; ++i) {
-      if (i < deg) {
-        const int4 ed = edges[e0 + i];
-        const unsigned b = __float_as_uint(v[i]);
-        const unsigned mag = (b & MAG_MASK) == m1 ? m2s : m1s;
-        const float msg = __uint_as_float(mag ^ (b & SIGN_BIT));
-        msg_store(c2v + ed.z, msg);
-        const int idx = ed.x + rot(z, ed.y, Z);
-        acc[idx] = ed.w ? msg : __fadd_rn(acc[idx], msg);
-      }
-    }
-  } else {
-    // T = sum of phi(|v|) in edge order; the extrinsic magnitude of an edge
-    // is phi(max(T - phi_i, 1e-9)); signs are `v < 0` tests multiplied up,
-    // here as the parity of a bit mask.
-    float ph[MAX_DEG];
-    unsigned neg = 0;
-    float T = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAX_DEG; ++i) {
-      if (i < deg) {
-        const int4 ed = edges[e0 + i];
-        const float t = totals[ed.x + rot(z, ed.y, Z)];
-        par ^= __float_as_uint(t);
-        const float ve = first ? t : __fsub_rn(t, msg_load(c2v + ed.z));
-        v[i] = ve;
-        neg |= (ve < 0.0f ? 1u : 0u) << i;
-        const float p = phi_f32(fabsf(ve));
-        ph[i] = p;
-        T = i == 0 ? p : __fadd_rn(T, p);
-      }
-    }
-    const unsigned sx = __popc(neg) & 1u;
-#pragma unroll
-    for (int i = 0; i < MAX_DEG; ++i) {
-      if (i < deg) {
-        const int4 ed = edges[e0 + i];
-        const float mag = phi_f32(fmaxf(__fsub_rn(T, ph[i]), 1e-9f));
-        // (+-1) * mag: an exact sign flip, also of a -0.0 magnitude
-        const unsigned s = (sx ^ (neg >> i)) & 1u;
-        const float msg = __uint_as_float(__float_as_uint(mag) ^ (s << 31));
-        msg_store(c2v + ed.z, msg);
-        const int idx = ed.x + rot(z, ed.y, Z);
-        if constexpr (FLOODING) {
-          acc[idx] = ed.w ? msg : __fadd_rn(acc[idx], msg);
-        } else {
-          totals[idx] = __fadd_rn(v[i], msg);
-        }
-      }
+  for (int i = 0; i < SLOTS; ++i) {
+    if (i < deg) {
+      const int4 ed = edges[e0 + i];
+      const float mag = phi_f32(fmaxf(__fsub_rn(T, ph[i]), 1e-9f));
+      // (+-1) * mag: an exact sign flip, also of a -0.0 magnitude
+      const unsigned s = (sx ^ (neg >> i)) & 1u;
+      const float msg = __uint_as_float(__float_as_uint(mag) ^ (s << 31));
+      c2v[ed.z] = msg;
+      const int idx = ed.x + rot(z, ed.y, Z);
+      totals[idx] = __fadd_rn(totals[idx], msg);
     }
   }
   return par;
 }
 
+// layered_sp_row_slots unrolled to the row's own degree, 3 to 10 (a row's
+// degree is the same for every thread of the block), so that no slot is
+// predicated off; the four rows of 19 edges of BG1 (and any other degree)
+// take MAX_DEG predicated slots.
+__device__ __forceinline__ unsigned layered_sp_row(float* totals, float* c2v,
+                                                   const int4* edges, int e0, int deg,
+                                                   int z, int Z, bool first) {
+#define SP_ROW_EXACT(D) \
+  case D: return layered_sp_row_slots<D>(totals, c2v, edges, e0, D, z, Z, first);
+  switch (deg) {
+    SP_ROW_EXACT(3) SP_ROW_EXACT(4) SP_ROW_EXACT(5) SP_ROW_EXACT(6) SP_ROW_EXACT(7)
+    SP_ROW_EXACT(8) SP_ROW_EXACT(9) SP_ROW_EXACT(10)
+    default:
+      return layered_sp_row_slots<MAX_DEG>(totals, c2v, edges, e0, deg, z, Z, first);
+  }
+#undef SP_ROW_EXACT
+}
+
 // ---- the layered min-sum family's messages in compressed form -------------
 //
-// check_row gives every edge of a row, at lane z, the message
+// The min-sum rule gives every edge of a row, at lane z, the message
 // (|v_i| == m1 ? m2s : m1s) ^ sign(v_i), where m1s and m2s are the scaled (or
 // offset) two smallest magnitudes with the row's sign product folded in.  So
 // four words rebuild every message of the row bit for bit: m1s, m2s, and a
@@ -340,11 +281,12 @@ __device__ __forceinline__ void store_row_msgs(unsigned* w, int L, unsigned m1s,
 }
 
 // One base row's layered min-sum / offset-min-sum update by the thread that
-// owns check z: check_row's arithmetic with the old messages rebuilt from
-// the row's words `old` (unless `first`) and the new words stored at `w`.
-// The totals take the unrounded message.  Returns the row's parity, as
-// check_row does.  The row is unrolled to SLOTS >= deg slots, predicated
-// where SLOTS > deg.
+// owns check z.  Magnitudes are compared as integers (bits & 0x7fffffff),
+// the two smallest kept by a min/max tournament, signs are XORs of sign bits;
+// the old messages are rebuilt from the row's words `old` (unless `first`)
+// and the new words stored at `w`.  The totals take the unrounded message.
+// Returns the XOR of the sign bits of the totals read (the row's parity).
+// The row is unrolled to SLOTS >= deg slots, predicated where SLOTS > deg.
 template <typename MSG, int SLOTS>
 __device__ __forceinline__ unsigned layered_row_slots(
     float* totals, const RowMsgs& old, unsigned* w, int L, const int4* edges,

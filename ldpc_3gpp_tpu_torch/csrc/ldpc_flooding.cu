@@ -30,7 +30,7 @@
 //     (its next item's loads issued before the current item's arithmetic)
 //     was 17-21 % slower on an H100: at the 64 registers of a 1,024-thread
 //     block the second item's inputs went to the stack (PERF.md §6).  The
-//     check rule is the one of ldpc_bp.cuh::check_row, operation for
+//     check rule is the reference's (ops/decoder_fast.py), operation for
 //     operation.  Each item stores its new messages in place, unrounded.
 //   - Fused syndrome.  The same phase ORs each item's row parity (the XOR of
 //     the sign bits of the totals it read), and one block vote after the
@@ -76,15 +76,26 @@
 //
 // Several small-Z codewords per block (ldpc_flooding_packed_kernel below)
 // replaces the TPU kernel's packed tiles (decoder_pallas.py::_auto_pack and
-// its segment-local parity vote); ldpc_layered.cu says what bounds a small-Z
-// block on this card and what the packed layout does about it.  Here a block
-// holds P sets of totals and column sums, and a codeword whose syndrome
-// passed stops as the one-codeword kernel does while its lanes go on to
-// every barrier until all P codewords of the block are done.  It runs one
-// barrier per base row and a separate syndrome pass, as the first form of the
-// one-codeword kernel did.
+// its segment-local parity vote).  What bounds it on this card: a block of P
+// codewords lasts as long as its slowest one, and a small-Z codeword is
+// little work for the threads it holds (config #1, Z=20: 840 message and
+// 1,040 column items per sweep).  Its first form, a thread per (codeword,
+// lane) with a barrier per base row, a separate syndrome pass and the
+// messages in a global scratch, took 6.2-6.3 ms on an H100 at config #1's
+// launch with 4 codewords per block (2,048 codewords, 50 iterations) against
+// 0.87-0.90 ms for one codeword per block.  It now runs the one-codeword
+// kernel's two phases over the items of the block's codewords still running,
+// so that a block's last codeword gets all of its threads, with the messages
+// on chip where P codewords' fit: 1.14-1.19 ms at that launch.  It stays
+// above the one-codeword kernel there: its larger blocks give an SM two
+// barrier domains instead of eight, and each item looks up its codeword
+// first (tools/flooding_shapes.py times both, also run to the budget);
+// handing a finished codeword's slot the launch's next codeword was no
+// faster (PERF.md section 6).
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "ldpc_bp.cuh"
 
@@ -136,15 +147,16 @@ __device__ __forceinline__ float stored(float m) {
 }
 
 // One (row, lane) item of the message phase: check z of a base row whose
-// edges are red[0..deg) (column offset, shift), its messages at msg[i*Z].
-// The check rule of ldpc_bp.cuh::check_row (flooding), operation for
-// operation; the new messages are stored unrounded in place.  Returns the
+// edges are red[0..deg) (column offset, shift), its messages at msg[i*Z]
+// (`msg` a float* or a GlobalMessages).  The reference's check rule
+// (ops/decoder_fast.py), operation for operation; the new messages are
+// stored unrounded in place.  Returns the
 // XOR of the sign bits of the totals read (the row's parity at check z).
 // The slots are unrolled to MAX_DEG and left at the row's degree (a branch
 // out, not predicated slots: a block's rows have degrees 3 to 19).
-template <bool SUM_PRODUCT, bool BF16, typename Totals>
+template <bool SUM_PRODUCT, bool BF16, typename Totals, typename Msgs>
 __device__ __forceinline__ unsigned message_item(
-    Totals totals, float* msg, const int2* red, int deg,
+    Totals totals, Msgs msg, const int2* red, int deg,
     int z, int Z, bool first, float alpha_t, int offset_rule, float beta) {
   unsigned par = 0;
   if constexpr (!SUM_PRODUCT) {
@@ -191,7 +203,11 @@ __device__ __forceinline__ unsigned message_item(
       }
     }
   } else {
-    float ph[MAX_DEG];
+    // With the messages in the packed kernel's global scratch, phi_i waits
+    // in its edge's message slot (read, then overwritten, by this item
+    // alone), not in registers: at 64 registers the MAX_DEG of them spilled.
+    constexpr bool PHI_IN_SLOT = !std::is_pointer<Msgs>::value;
+    float ph[PHI_IN_SLOT ? 1 : MAX_DEG];
     unsigned neg = 0;
     float T = 0.0f;
 #pragma unroll
@@ -204,7 +220,10 @@ __device__ __forceinline__ unsigned message_item(
         const float ve = first ? t : __fsub_rn(t, msg[i * Z]);
         neg |= (ve < 0.0f ? 1u : 0u) << i;
         const float p = phi_f32(fabsf(ve));
-        ph[i] = p;
+        if constexpr (PHI_IN_SLOT)
+          msg[i * Z] = p;
+        else
+          ph[i] = p;
         T = i == 0 ? p : __fadd_rn(T, p);
       }
     }
@@ -213,7 +232,12 @@ __device__ __forceinline__ unsigned message_item(
     for (int i = 0; i < MAX_DEG; ++i) {
       if (i >= deg) break;
       {
-        const float mag = phi_f32(fmaxf(__fsub_rn(T, ph[i]), 1e-9f));
+        float p;
+        if constexpr (PHI_IN_SLOT)
+          p = msg[i * Z];
+        else
+          p = ph[i];
+        const float mag = phi_f32(fmaxf(__fsub_rn(T, p), 1e-9f));
         // (+-1) * mag: an exact sign flip, also of a -0.0 magnitude
         const unsigned s = (sx ^ (neg >> i)) & 1u;
         msg[i * Z] = __uint_as_float(__float_as_uint(mag) ^ (s << 31));
@@ -516,91 +540,213 @@ ldpc_flooding_cluster_kernel(const float* __restrict__ llr, int8_t* __restrict__
   }
 }
 
-// P codewords per block (P >= 2): thread t owns lane t % Z of codeword t / Z.
-// Per codeword the arithmetic and the stopping rule are the one-codeword
-// kernel's, so the results are bit-identical.  Shared memory: P sets of
-// totals, P sets of column sums, the edge table (message offsets scaled by P:
-// the block's scratch is (E, P*Z)), the row offsets, a flag word per codeword.
-template <bool SUM_PRODUCT, typename MSG>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-ldpc_flooding_packed_kernel(const float* __restrict__ llr,
-                            int8_t* __restrict__ bits, int* __restrict__ ok_out,
-                            int* __restrict__ it_out, MSG* __restrict__ c2v_all,
-                            const int4* __restrict__ edges_g,
-                            const int* __restrict__ row_start_g, DecodeArgs a,
-                            int P, int ncw) {
+// An item's messages in the packed kernel's global scratch: a 32-bit offset
+// from the block's share, so that an item's up to MAX_DEG message addresses
+// are not 64-bit values held from the load to the store (at 64 registers
+// they spilled).
+struct GlobalMessages {
+  float* base;
+  int off;
+  __device__ __forceinline__ float& operator[](int i) const { return base[off + i]; }
+};
+
+// Walks the items t, t + T, t + 2T, ... of a (major, row, lane) range with
+// Z lanes per row and R rows per major index, without a division per step.
+struct ItemWalk3 {
+  int major, row, lane, d_major, d_row, d_lane, Z, R;
+  __device__ ItemWalk3(int t, int T, int Z_, int R_) : Z(Z_), R(R_) {
+    int m = t / Z;
+    lane = t - m * Z;
+    major = m / R;
+    row = m - major * R;
+    m = T / Z;
+    d_lane = T - m * Z;
+    d_major = m / R;
+    d_row = m - d_major * R;
+  }
+  __device__ void next() {
+    lane += d_lane;
+    row += d_row;
+    major += d_major;
+    if (lane >= Z) {
+      lane -= Z;
+      ++row;
+    }
+    if (row >= R) {
+      row -= R;
+      ++major;
+    }
+  }
+};
+
+// P codewords per block (P >= 2), in the one-codeword kernel's two phases.
+// The block's items are those of its live codewords: item i of the message
+// phase is (live[i / (nr*Z)], row, lane), of the column phase (live[i /
+// (nc*Z)], column, lane), dealt over all of the block's threads, so a
+// block's last running codeword gets all of them.  The arithmetic per item
+// and the stopping rule are the one-codeword kernel's: bit-identical results.
+// Per sweep: message phase (each item ORs its row parity into its
+// codeword's flag word), one barrier (its OR says whether any codeword
+// goes on), the vote, column phase, one barrier.  The vote: warp 0 writes
+// the results of the codewords that stop and the next sweep's live list
+// while the column phase runs, skipping items of codewords that just
+// stopped; the flag words and live lists are double-buffered by sweep, so
+// each is written one barrier after its last read.  A codeword that stops
+// keeps the totals that were checked and writes nothing more; its bits are
+// written from them after the loop.  ON_CHIP: the messages, P*E*Z floats,
+// are in shared memory; else in the block's share of a global scratch, (P,
+// E, Z) per block.  Shared memory: FLOODING_PACKED_SHARED_BYTES.
+#define FLOODING_PACKED_SHARED_BYTES(Z, nc, nr, E, P, on_chip)                    \
+  (align16((size_t)(P) * ((nc) + ((on_chip) ? (E) : 0)) * (Z) * 4) + (size_t)(E) * 16 + \
+   (size_t)((nr) + (nc) + 2) * 4 + (size_t)(P) * 16 + 8)
+
+template <bool SUM_PRODUCT, bool BF16, bool ON_CHIP>
+__global__ void __launch_bounds__(FLOODING_MAX_THREADS, 1)
+ldpc_flooding_packed_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
+                            int* __restrict__ ok_out, int* __restrict__ it_out,
+                            float* __restrict__ scratch, const int4* __restrict__ edges_g,
+                            const int* __restrict__ row_start_g,
+                            const int2* __restrict__ col_edges_g,
+                            const int* __restrict__ col_start_g, DecodeArgs a, int P,
+                            int ncw) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Z = a.Z, nc = a.nc, nr = a.nr, E = a.E;
-  int4* edges = reinterpret_cast<int4*>(smem + align16((size_t)2 * P * nc * Z * 4));
-  int* row_start = reinterpret_cast<int*>(edges + E);
-  int* flags = row_start + nr + 1;
+  float* totals = reinterpret_cast<float*>(smem);  // P sets of nc*Z
+  float* msgs = ON_CHIP ? totals + (size_t)P * nc * Z
+                        : scratch + (size_t)blockIdx.x * P * E * Z;  // P sets of E*Z
+  int2* red = reinterpret_cast<int2*>(
+      smem + align16((size_t)P * (nc + (ON_CHIP ? E : 0)) * Z * 4));
+  int2* ced = red + E;
+  int* row_start = reinterpret_cast<int*>(ced + E);
+  int* col_start = row_start + nr + 1;
+  int* flags = col_start + nc + 1;  // [2][P]: a codeword's row parity failed
+  int* live = flags + 2 * P;        // [2][P]: the codewords still running
+  int* n_live = live + 2 * P;       // [2]
 
-  const int t = threadIdx.x;
-  const int k = t / Z;       // codeword of this thread within the block
-  const int z = t - k * Z;   // its lane
-  const size_t cw = (size_t)blockIdx.x * P + k;
-  const bool active = k < P && cw < (size_t)ncw;
-  float* totals = reinterpret_cast<float*>(smem) + (size_t)(active ? k : 0) * nc * Z;
-  float* acc = totals + (size_t)P * nc * Z;
+  const int t = threadIdx.x, T = blockDim.x;
+  const size_t cw0 = (size_t)blockIdx.x * P;
+  const int here = min(P, ncw - (int)cw0);
+  const size_t in_len = (size_t)(a.d_input ? nc - 2 : nc) * Z;
+  const float* src = llr + cw0 * in_len;
 
-  for (int i = t; i < E; i += blockDim.x) {
-    int4 ed = edges_g[i];
-    ed.z *= P;
-    edges[i] = ed;
+  for (int i = t; i < E; i += T) {
+    const int4 ed = edges_g[i];
+    red[i] = make_int2(ed.x, ed.y);
+    ced[i] = col_edges_g[i];
   }
-  for (int i = t; i <= nr; i += blockDim.x) row_start[i] = row_start_g[i];
-
-  const float* src = llr + (active ? cw : 0) * (size_t)((a.d_input ? nc - 2 : nc) * Z);
-  if (active) load_totals<false>(totals, nullptr, src, z, a);
+  for (int i = t; i <= nr; i += T) row_start[i] = row_start_g[i];
+  for (int i = t; i <= nc; i += T) col_start[i] = col_start_g[i];
+  for (int i = t; i < P; i += T) {
+    live[i] = i;
+    flags[i] = 0;
+  }
+  if (t == 0) n_live[0] = here;
+  {
+    ItemWalk3 w(t, T, Z, nc);
+    for (; w.major < here; w.next())
+      totals[(w.major * nc + w.row) * Z + w.lane] =
+          channel_llr(src + w.major * in_len, w.row, w.lane, a);
+  }
   __syncthreads();
 
-  MSG* c2v = c2v_all + (size_t)blockIdx.x * ((size_t)E * P * Z) + t;
-  int ok = 0;
-  int used = a.iterations;
-  bool done = !active;  // nothing (more) to do for this thread
-
   for (int it = 0;; ++it) {
-    // Early termination checks before every update and once after the last;
-    // a run to budget checks only the final state.  Uniform over the block.
-    if (a.early_termination || it == a.iterations) {
-      if (t < P) flags[t] = 0;
-      __syncthreads();
-      if (!done) {
-        const unsigned bad = syndrome_bits(totals, edges, row_start, nr, z, Z);
-        if (bad & SIGN_BIT) flags[k] = 1;
+    const int cur = it & 1, nxt = cur ^ 1;
+    const int nl = n_live[cur];
+    const int* lv = live + cur * P;
+    int* fl = flags + cur * P;
+    const bool update = it < a.iterations;
+    // Message phase with the fused syndrome; the pass at it == iterations
+    // only checks.
+    unsigned bad = 0;
+    {
+      ItemWalk3 w(t, T, Z, nr);
+      if (update) {
+        const bool first = it == 0;  // all messages are zero: skip their read
+        const float alpha_t = it < a.n0 ? a.alpha0 : a.alpha;
+        for (; w.major < nl; w.next()) {
+          const int k = lv[w.major];
+          const int e0 = row_start[w.row];
+          const int off = (k * E + e0) * Z + w.lane;
+          const LocalTotals tk{totals + k * nc * Z};
+          unsigned par;
+          if constexpr (ON_CHIP)
+            par = message_item<SUM_PRODUCT, BF16>(tk, msgs + off, red + e0,
+                                                  row_start[w.row + 1] - e0, w.lane, Z,
+                                                  first, alpha_t, a.offset_rule, a.beta);
+          else
+            par = message_item<SUM_PRODUCT, BF16>(tk, GlobalMessages{msgs, off}, red + e0,
+                                                  row_start[w.row + 1] - e0, w.lane, Z,
+                                                  first, alpha_t, a.offset_rule, a.beta);
+          if (par & SIGN_BIT) fl[k] = 1;
+          bad |= par;
+        }
+      } else {
+        for (; w.major < nl; w.next()) {
+          const int k = lv[w.major];
+          const int e0 = row_start[w.row];
+          const unsigned par = parity_item(LocalTotals{totals + k * nc * Z}, red + e0,
+                                           row_start[w.row + 1] - e0, w.lane, Z);
+          if (par & SIGN_BIT) fl[k] = 1;
+          bad |= par;
+        }
       }
-      __syncthreads();
-      if (!done && !flags[k]) {
-        ok = 1;
-        if (a.early_termination) used = it;
-        done = true;
-      }
-      if (it == a.iterations) break;
-      if (__syncthreads_and(done)) break;
     }
+    // Early termination stops a codeword at every vote, a run to budget at
+    // the last one only; the block leaves when none goes on.
+    const int any_bad = __syncthreads_or(bad & SIGN_BIT);
+    const bool stop_passed = a.early_termination || !update;
+    if (t < 32) {  // the vote: results of the codewords that stop, next list
+      int n = 0;
+      for (int j0 = 0; j0 < nl; j0 += 32) {
+        const int j = j0 + t;
+        const int k = j < nl ? lv[j] : 0;
+        const bool failed = j < nl && fl[k];
+        const bool keep = j < nl && update && (failed || !stop_passed);
+        if (j < nl && !keep) {
+          ok_out[cw0 + k] = !failed;
+          it_out[cw0 + k] = a.early_termination && !failed ? it : a.iterations;
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, keep);
+        if (keep) live[nxt * P + n + __popc(m & ((1u << t) - 1u))] = k;
+        n += __popc(m);
+      }
+      if (t == 0) n_live[nxt] = n;
+      for (int i = t; i < P; i += 32) flags[nxt * P + i] = 0;
+    }
+    if (!update || (a.early_termination && !any_bad)) break;  // uniform
 
-    const bool first = it == 0;
-    const float alpha_t = it < a.n0 ? a.alpha0 : a.alpha;
-    for (int r = 0; r < nr; ++r) {
-      const int e0 = row_start[r];
-      if (!done)
-        check_row<SUM_PRODUCT, true, MSG>(totals, acc, c2v, edges, e0,
-                                          row_start[r + 1] - e0, z, Z, first,
-                                          alpha_t, a.offset_rule, a.beta);
-      __syncthreads();
+    // Column phase: totals = llr + the column's messages in row order, for
+    // the codewords that go on.
+    {
+      ItemWalk3 w(t, T, Z, nc);
+      for (; w.major < nl; w.next()) {
+        const int k = lv[w.major];
+        if (a.early_termination && !fl[k]) continue;  // stopped at this vote
+        const int mk = k * E * Z;  // the codeword's messages, an offset as above
+        const float v = channel_llr(src + k * in_len, w.row, w.lane, a);
+        const int k1 = col_start[w.row + 1];
+        int q = col_start[w.row];
+        int2 ce = ced[q];
+        float sum = msgs[mk + ce.x + unrot(w.lane, ce.y, Z)];
+#pragma unroll 4
+        for (++q; q < k1; ++q) {
+          ce = ced[q];
+          sum = __fadd_rn(sum, msgs[mk + ce.x + unrot(w.lane, ce.y, Z)]);
+        }
+        totals[(k * nc + w.row) * Z + w.lane] = __fadd_rn(v, sum);
+      }
     }
-    if (!done) load_totals<true>(totals, acc, src, z, a);
     __syncthreads();
   }
 
-  if (active) {
-    int8_t* dst = bits + cw * (size_t)(a.out_cols * Z);
-    for (int c = 0; c < a.out_cols; ++c)
-      dst[c * Z + z] = totals[c * Z + z] < 0.0f;
-    if (z == 0) {
-      ok_out[cw] = ok;
-      it_out[cw] = used;
-    }
+  // every codeword's bits from its totals (a stopped codeword's are those
+  // that were checked)
+  {
+    ItemWalk3 w(t, T, Z, a.out_cols);
+    int8_t* dst = bits + cw0 * (size_t)(a.out_cols * Z);
+    for (; w.major < here; w.next())
+      dst[(w.major * a.out_cols + w.row) * Z + w.lane] =
+          totals[(w.major * nc + w.row) * Z + w.lane] < 0.0f;
   }
 }
 
@@ -612,13 +758,11 @@ extern "C" int ldpc_flooding_max_shared_bytes() { return max_shared_bytes_optin(
 // FLOODING_SHARED_BYTES (1: one block per codeword) or
 // FLOODING_CLUSTER_SHARED_BYTES for a cluster of `layout` blocks per
 // codeword (2 to MAX_CLUSTER; `cols_max`, `edges_max`: the most columns and
-// edges a block of it owns); for P > 1 the packed kernel's P sets of totals
-// and of column sums, edge table, row offsets and a flag word per codeword.
+// edges a block of it owns); for P > 1 FLOODING_PACKED_SHARED_BYTES with the
+// messages on chip (layout 1) or in a global scratch (layout 0).
 extern "C" int ldpc_flooding_shared_bytes(int Z, int nc, int nr, int E, int P,
                                           int layout, int cols_max, int edges_max) {
-  if (P > 1)
-    return (int)(align16((size_t)2 * P * nc * Z * 4) + (size_t)E * 16 +
-                 (size_t)(nr + 1) * 4 + (size_t)P * 4);
+  if (P > 1) return (int)FLOODING_PACKED_SHARED_BYTES(Z, nc, nr, E, P, layout == 1);
   if (layout >= 2)
     return (int)FLOODING_CLUSTER_SHARED_BYTES(Z, nc, nr, E, cols_max, edges_max);
   return (int)FLOODING_SHARED_BYTES(Z, nc, nr, E);
@@ -626,17 +770,19 @@ extern "C" int ldpc_flooding_shared_bytes(int Z, int nc, int nr, int E, int P,
 
 // The instantiation that serves (rule, message type, P, layout), and its
 // launch.
-template <bool SUM_PRODUCT, bool BF16, typename MSG>
+template <bool SUM_PRODUCT, bool BF16>
 static const void* kernel_for(int P, int layout) {
-  if (P > 1) return (const void*)ldpc_flooding_packed_kernel<SUM_PRODUCT, MSG>;
+  if (P > 1)
+    return layout == 1 ? (const void*)ldpc_flooding_packed_kernel<SUM_PRODUCT, BF16, true>
+                       : (const void*)ldpc_flooding_packed_kernel<SUM_PRODUCT, BF16, false>;
   if (layout >= 2) return (const void*)ldpc_flooding_cluster_kernel<SUM_PRODUCT, BF16>;
   return (const void*)ldpc_flooding_kernel<SUM_PRODUCT, BF16>;
 }
 
 static const void* select_kernel(int rule, int bf16_messages, int P, int layout) {
-  if (rule == RULE_SUM_PRODUCT) return kernel_for<true, false, float>(P, layout);
-  if (bf16_messages) return kernel_for<false, true, __nv_bfloat16>(P, layout);
-  return kernel_for<false, false, float>(P, layout);
+  if (rule == RULE_SUM_PRODUCT) return kernel_for<true, false>(P, layout);
+  if (bf16_messages) return kernel_for<false, true>(P, layout);
+  return kernel_for<false, false>(P, layout);
 }
 
 struct Plans {
@@ -647,7 +793,7 @@ struct Plans {
   const int* splits;
 };
 
-template <bool SUM_PRODUCT, bool BF16, typename MSG>
+template <bool SUM_PRODUCT, bool BF16>
 static cudaError_t launch(const void* llr, void* bits, void* ok, void* iters,
                           void* c2v, const Plans& g, int ncw, int P, int layout,
                           int threads, int smem_bytes, int cols_max,
@@ -655,9 +801,15 @@ static cudaError_t launch(const void* llr, void* bits, void* ok, void* iters,
   const float* x = (const float*)llr;
   int8_t* y = (int8_t*)bits;
   if (P > 1) {
-    ldpc_flooding_packed_kernel<SUM_PRODUCT, MSG>
-        <<<(ncw + P - 1) / P, threads, smem_bytes, s>>>(
-            x, y, (int*)ok, (int*)iters, (MSG*)c2v, g.edges, g.row_start, a, P, ncw);
+    const unsigned blocks = (unsigned)((ncw + P - 1) / P);
+    if (layout == 1)
+      ldpc_flooding_packed_kernel<SUM_PRODUCT, BF16, true><<<blocks, threads, smem_bytes, s>>>(
+          x, y, (int*)ok, (int*)iters, nullptr, g.edges, g.row_start, g.col_edges,
+          g.col_start, a, P, ncw);
+    else
+      ldpc_flooding_packed_kernel<SUM_PRODUCT, BF16, false><<<blocks, threads, smem_bytes, s>>>(
+          x, y, (int*)ok, (int*)iters, (float*)c2v, g.edges, g.row_start, g.col_edges,
+          g.col_start, a, P, ncw);
   } else if (layout >= 2) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)ncw * (unsigned)layout);
@@ -683,16 +835,14 @@ static cudaError_t launch(const void* llr, void* bits, void* ok, void* iters,
   return cudaSuccess;
 }
 
-// Block size: the packed kernel's P*Z lanes in whole warps, or the wrapper's
-// `threads` for one codeword per block or cluster.
-static int block_threads(int P, int Z, int threads) {
-  return P > 1 ? ((P * Z + 31) / 32) * 32 : threads;
-}
-
+// One codeword per block or cluster (`layout` 1 to MAX_CLUSTER), or P > 1
+// codewords per block with the messages in a global scratch (`layout` 0) or
+// on chip (1); `threads` a whole number of warps up to FLOODING_MAX_THREADS.
 static bool valid_shape(int Z, int P, int layout, int threads) {
   if (Z < 1 || Z > MAX_THREADS || P < 1) return false;
-  if (P > 1) return P * Z <= MAX_THREADS;
-  if (layout < 1 || layout > MAX_CLUSTER) return false;
+  if (P > 1 ? (P * Z > MAX_THREADS || layout < 0 || layout > 1)
+            : (layout < 1 || layout > MAX_CLUSTER))
+    return false;
   return threads >= 32 && threads <= FLOODING_MAX_THREADS && threads % 32 == 0;
 }
 
@@ -714,7 +864,7 @@ extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kernel, block_threads(P, Z, threads), smem_bytes);
+        &n, kernel, threads, smem_bytes);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -727,11 +877,11 @@ extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
 // only).  `codewords_per_block` P = 1 runs one codeword per block (`layout`
 // 1) or per cluster of `layout` blocks (2 to MAX_CLUSTER, split by `splits`:
 // row_lo[0..layout], col_lo[0..layout]; `cols_max`, `edges_max` the most
-// columns and edges of a block), `threads` threads per block, messages in
-// shared memory, `c2v` null.  P > 1 runs ceil(ncw / P) blocks of the packed
-// kernel, whose scratch `c2v` (float32 or bfloat16) must hold
-// ceil(ncw / P) * P * E * Z elements.  Does not synchronise and allocates
-// nothing.  Returns cudaGetLastError().
+// columns and edges of a block), messages in shared memory, `c2v` null.
+// P > 1 runs ceil(ncw / P) blocks of the packed kernel, messages in shared
+// memory (`layout` 1, `c2v` null) or in the scratch `c2v` (`layout` 0: P*E*Z
+// floats per block).  `threads` threads per block.  Does not synchronise and
+// allocates nothing.  Returns cudaGetLastError().
 extern "C" int ldpc_flooding_decode(
     const void* llr, void* bits, void* ok, void* iters, void* c2v,
     const void* edges, const void* row_start, const void* col_edges,
@@ -744,7 +894,7 @@ extern "C" int ldpc_flooding_decode(
   if (ncw < 1 || !valid_shape(Z, P, layout, threads)) return (int)cudaErrorInvalidValue;
   if (rule < RULE_MIN_SUM || rule > RULE_SUM_PRODUCT) return (int)cudaErrorInvalidValue;
   if (rule == RULE_SUM_PRODUCT && bf16_messages) return (int)cudaErrorInvalidValue;
-  if ((P > 1) != (c2v != nullptr)) return (int)cudaErrorInvalidValue;
+  if ((P > 1 && layout == 0) != (c2v != nullptr)) return (int)cudaErrorInvalidValue;
   DecodeArgs a;
   a.Z = Z; a.nc = nc; a.nr = nr; a.E = E; a.out_cols = out_cols;
   a.d_input = d_input; a.fill_lo = fill_lo; a.fill_hi = fill_hi;
@@ -761,17 +911,15 @@ extern "C" int ldpc_flooding_decode(
                    (const int2*)col_edges, (const int*)col_start,
                    (const int*)splits};
   const cudaStream_t st = (cudaStream_t)stream;
-  const int T = block_threads(P, Z, threads);
   if (rule == RULE_SUM_PRODUCT)
-    err = launch<true, false, float>(llr, bits, ok, iters, c2v, g, ncw, P, layout, T,
-                                     smem_bytes, cols_max, edges_max, a, st);
+    err = launch<true, false>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,
+                              smem_bytes, cols_max, edges_max, a, st);
   else if (bf16_messages)
-    err = launch<false, true, __nv_bfloat16>(llr, bits, ok, iters, c2v, g, ncw, P,
-                                             layout, T, smem_bytes, cols_max,
-                                             edges_max, a, st);
+    err = launch<false, true>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,
+                              smem_bytes, cols_max, edges_max, a, st);
   else
-    err = launch<false, false, float>(llr, bits, ok, iters, c2v, g, ncw, P, layout, T,
-                                      smem_bytes, cols_max, edges_max, a, st);
+    err = launch<false, false>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,
+                               smem_bytes, cols_max, edges_max, a, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

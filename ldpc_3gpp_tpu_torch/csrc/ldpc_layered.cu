@@ -43,11 +43,22 @@
 // thread loads them LOOKAHEAD rows before their use (three registers a row,
 // not one per edge), and their latency hides behind the current row and its
 // barrier.  Sum-product has no such form and keeps one float per edge, laid
-// out (E, Z), whose row is loaded in full before its first use (MAX_DEG
-// predicated slots held in registers).  Sweep 0 never reads the messages
+// out (E, Z).  Its row is unrolled to its own degree too (a row of MAX_DEG
+// predicated slots issued the work of 20 edges, two phi each, for rows of 3
+// to 10), and v_i waits between the row's two halves in the total's own
+// place rather than in registers: 71 registers, four 224-thread blocks per
+// SM at BG2 Z=208, 1.50-1.52 ms against 1.92-1.94 for the MAX_DEG row on an
+// H100 (P3's shape, 1,024 codewords).  What bounds it now is the row's
+// chain of two phi per edge and its message loads from device memory (the
+// scratch of 1,024 codewords is three times the L2): without the message
+// traffic the kernel takes a quarter less time (tools/layered_probe.py).
+// Staging the next row's messages in shared memory with cp.async saved
+// another 3 % but took 80 registers, three blocks per SM (capped at 72 it
+// spilled), and was left out.  Sweep 0 never reads the messages
 // (they are known to be zero), which also spares zero-filling the scratch.  A
 // block stops at the sweep in which its codeword's parity passed, so early
-// termination saves its full share of traffic.  Two blocks fit one SM.
+// termination saves its full share of traffic.  Two blocks fit one SM
+// (min-sum family; sum-product four at Z=208).
 // Within a row every edge has its own column and within an edge every lane
 // its own address, so a row needs no atomics: one barrier per row.
 //
@@ -133,8 +144,7 @@ ldpc_layered_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
 
   // Channel LLRs into the totals, in variable coordinates.
   if (active)
-    load_totals<false>(
-        totals, nullptr, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, a);
+    load_totals(totals, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, a);
   __syncthreads();
 
   // this thread's lane of the codeword's messages
@@ -155,9 +165,7 @@ ldpc_layered_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
       // parity of the totals as read in this sweep
       if (active) {
         if constexpr (SUM_PRODUCT) {
-          bad |= check_row<true, false, float>(
-              totals, nullptr, c2v, edges, e0, deg, z, Z, first, alpha_t,
-              a.offset_rule, a.beta);
+          bad |= layered_sp_row(totals, c2v, edges, e0, deg, z, Z, first);
         } else {
           const RowMsgs old = ahead.next(words, r, nr, Z, first);
           bad |= layered_row_compressed<MSG>(
@@ -234,8 +242,7 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
   for (int i = t; i <= nr; i += blockDim.x) row_start[i] = row_start_g[i];
 
   if (active)
-    load_totals<false>(
-        totals, nullptr, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, a);
+    load_totals(totals, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, a);
   __syncthreads();
 
   float* c2v = static_cast<float*>(scratch) + (size_t)blockIdx.x * ((size_t)E * L) + t;
@@ -256,9 +263,7 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
       const int deg = row_start[r + 1] - e0;
       if (!done) {
         if constexpr (SUM_PRODUCT) {
-          bad |= check_row<true, false, float>(
-              totals, nullptr, c2v, edges, e0, deg, z, Z, first, alpha_t,
-              a.offset_rule, a.beta);
+          bad |= layered_sp_row(totals, c2v, edges, e0, deg, z, Z, first);
         } else {
           const RowMsgs old = ahead.next(words, r, nr, L, first);
           bad |= layered_row_compressed<MSG>(

@@ -21,13 +21,15 @@ Several small-Z codewords per block (the counterpart of the TPU kernel's
 ``auto_codewords_per_block``, 1 runs one block per codeword, P > 1 runs the
 packed kernel of the schedule.  Packing changes no result.
 
-The one-codeword flooding kernel runs each sweep as a message phase over
-every (row, lane) item and a column phase over every (column, lane) item,
-with up to 1,024 threads per block and every message in shared memory; the
-wrapper gives it the column plan (``_column_plan``), its block size
-(``flooding_threads``) and its layout (``flooding_layout``: one block per
-codeword where that holds it, else a thread block cluster).  Neither choice
-changes a result.
+The flooding kernels run each sweep as a message phase over every (row,
+lane) item and a column phase over every (column, lane) item, with up to
+1,024 threads per block and the messages in shared memory where they fit;
+the packed one deals the items of the codewords still running over the whole
+block.  The wrapper gives them the column plan (``_column_plan``), their
+block size (``flooding_threads``) and their layout (``flooding_layout``: one
+block per codeword where that holds it, else a thread block cluster;
+``packed_flooding_layout``: the P codewords' messages on chip where they fit,
+else in a global scratch).  No choice changes a result.
 """
 from __future__ import annotations
 
@@ -113,10 +115,11 @@ MAX_BLOCK_SHARED_BYTES = 232_448
 # for the flooding kernel's block size (as in tools/op_rates.py).
 SM_SHARED_BYTES = 233_472
 BLOCK_RESERVED_BYTES = 1_024
-# Where a launch keeps its messages: a global scratch (the layered and
-# packed kernels), one block's shared memory (the one-codeword flooding
-# kernel), or (2 to MAX_CLUSTER) the shared memory of a thread block
-# cluster of that many blocks per codeword (three hold BG1 Z=384).
+# Where a launch keeps its messages: a global scratch (the layered kernels,
+# and the packed flooding kernel where its P codewords' messages do not fit a
+# block), one block's shared memory (the flooding kernels), or (2 to
+# MAX_CLUSTER) the shared memory of a thread block cluster of that many
+# blocks per codeword (three hold BG1 Z=384).
 LAYOUT_SCRATCH, LAYOUT_ON_CHIP = 0, 1
 MAX_CLUSTER = 3
 
@@ -146,18 +149,23 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1) -> int:
+def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1,
+                 on_chip: bool = True) -> int:
     """Dynamic shared memory of one block of ``P`` codewords: the formula of
-    ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered and packed
-    flooding: totals, and for flooding the column sums, per codeword; edge
-    table; row offsets; P > 1: a flag word per codeword.  One codeword per
-    flooding block: FLOODING_SHARED_BYTES, the totals and the E*Z messages
-    (float32), row and column plans and their offsets (it may exceed what a
-    block has: then ``flooding_layout`` takes a cluster)."""
-    if schedule == "flooding" and P == 1:
-        return _align16((nc + E) * Z * 4) + E * 16 + (nr + nc + 2) * 4
-    sets = 2 if schedule == "flooding" else 1
-    return _align16(sets * P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
+    ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered: totals per
+    codeword; edge table; row offsets; P > 1: a flag word per codeword.
+    Flooding, one codeword per block: FLOODING_SHARED_BYTES, the totals and
+    the E*Z messages (float32), row and column plans and their offsets (it
+    may exceed what a block has: then ``flooding_layout`` takes a cluster).
+    Flooding, P > 1: FLOODING_PACKED_SHARED_BYTES, the same per codeword
+    (without the messages unless ``on_chip``) and four vote words per
+    codeword and two per block (flags and live lists, by sweep)."""
+    if schedule == "flooding":
+        if P == 1:
+            return _align16((nc + E) * Z * 4) + E * 16 + (nr + nc + 2) * 4
+        return (_align16(P * (nc + (E if on_chip else 0)) * Z * 4) + E * 16
+                + (nr + nc + 2) * 4 + P * 16 + 8)
+    return _align16(P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
 
 
 # 32-bit words per (row, lane) of the layered min-sum family's compressed
@@ -171,18 +179,22 @@ def scratch_shape(params: LDPCParams, n: int, schedule: str = "layered",
                   P: int = 1):
     """(shape, dtype) of the message scratch that ``decode`` gives a launch
     of ``n`` codewords with ``P`` codewords per block, or None where the
-    launch keeps its messages on chip (the one-codeword flooding kernel).
-    One entry per block of P codewords (the last block's share is whole):
-    the layered min-sum family keeps each row's messages in compressed
-    form, (blocks, num_rows, COMPRESSED_WORDS, P*Z) int32 words in
-    processing order; sum-product and the packed flooding kernel keep one
-    message per edge, (blocks, E, P*Z) of the message type."""
+    launch keeps its messages on chip (the flooding kernels, but for a
+    packed launch whose messages do not fit a block).  One entry per block
+    of P codewords (the last block's share is whole): the layered min-sum
+    family keeps each row's messages in compressed form, (blocks, num_rows,
+    COMPRESSED_WORDS, P*Z) int32 words in processing order; layered
+    sum-product one message per edge, (blocks, E, P*Z) float32; the packed
+    flooding kernel one unrounded message per edge, (blocks, P, E, Z)
+    float32."""
     dtype = resolve_message_dtype(message_dtype, algorithm)
-    if schedule == "flooding" and P == 1:
-        return None
     Z, E = params.Z_c, len(params.edges[0])
     blocks = -(-n // P)
-    if schedule == "layered" and algorithm != "sum-product":
+    if schedule == "flooding":
+        if P == 1 or packed_flooding_layout(params, P) == LAYOUT_ON_CHIP:
+            return None
+        return (blocks, P, E, Z), torch.float32
+    if algorithm != "sum-product":
         return (blocks, params.num_rows, COMPRESSED_WORDS[dtype], P * Z), torch.int32
     return (blocks, E, P * Z), dtype
 
@@ -217,11 +229,15 @@ def _cluster_split(params: LDPCParams, size: int) -> tuple:
             max(np.diff(col_lo).tolist()), max(edges))
 
 
-def flooding_shared_bytes(params: LDPCParams, layout: int) -> int:
-    """Dynamic shared memory of one block of the one-codeword flooding
-    kernel in ``layout``: FLOODING_SHARED_BYTES, or for a cluster
-    FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu."""
+def flooding_shared_bytes(params: LDPCParams, layout: int, P: int = 1) -> int:
+    """Dynamic shared memory of one block of a flooding kernel in
+    ``layout``: one codeword per block, FLOODING_SHARED_BYTES, or for a
+    cluster FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu; P > 1,
+    FLOODING_PACKED_SHARED_BYTES with the messages on chip (layout 1) or in
+    a scratch (layout 0)."""
     Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    if P > 1:
+        return shared_bytes("flooding", Z, nc, nr, E, P, on_chip=layout == LAYOUT_ON_CHIP)
     if layout >= 2:
         _, cols_max, edges_max = _cluster_split(params, layout)
         return (_align16(cols_max * Z * 4) + _align16(edges_max * Z * 4) + E * 16
@@ -244,34 +260,46 @@ def flooding_layout(params: LDPCParams) -> int:
     raise ValueError(f"no cluster of up to {MAX_CLUSTER} blocks holds Z={params.Z_c}")
 
 
-def flooding_threads(params: LDPCParams, n: int, layout=None, sms: int = 132) -> int:
-    """Block size of the one-codeword flooding kernel for ``n`` codewords on
-    ``sms`` SMs.  The kernel is held to 64 registers, so an SM runs at most
-    FLOODING_MAX_THREADS of its threads; they are split, in whole warps, over
-    the blocks that share an SM: as many as its shared memory holds, but no
-    more than half the launch's codewords per SM, and never more threads
-    than the column phase has items (num_cols * Z).  A launch whose
-    codewords fit in two rounds lasts as long as its slowest codeword, which
-    then has the SM to itself; a larger launch is faster with the SM shared
-    (``tools/flooding_shapes.py`` on an H100, PERF.md §6)."""
+def packed_flooding_layout(params: LDPCParams, P: int) -> int:
+    """Where the packed flooding kernel keeps the messages of a block of
+    ``P`` codewords: on chip where they fit the block with the totals and
+    the plans, else in a global scratch."""
+    fits = flooding_shared_bytes(params, LAYOUT_ON_CHIP, P) <= MAX_BLOCK_SHARED_BYTES
+    return LAYOUT_ON_CHIP if fits else LAYOUT_SCRATCH
+
+
+def flooding_threads(params: LDPCParams, n: int, layout=None, sms: int = 132,
+                     P: int = 1) -> int:
+    """Block size of a flooding kernel for ``n`` codewords, ``P`` per block,
+    on ``sms`` SMs.  The kernels are held to 64 registers, so an SM runs at
+    most FLOODING_MAX_THREADS of their threads; they are split, in whole
+    warps, over the blocks that share an SM: as many as its shared memory
+    holds, but no more than half the launch's blocks per SM, and never more
+    threads than the column phase has items (P * num_cols * Z).  A launch
+    whose blocks fit in two rounds lasts as long as its slowest codeword,
+    which then has the SM to itself; a larger launch is faster with the SM
+    shared (``tools/flooding_shapes.py`` on an H100, PERF.md §6)."""
     if layout is None:
-        layout = flooding_layout(params)
-    size = max(layout, 1)  # blocks per codeword
-    smem = flooding_shared_bytes(params, layout)
+        layout = flooding_layout(params) if P == 1 else packed_flooding_layout(params, P)
+    size = max(layout, 1) if P == 1 else 1  # blocks per codeword, or per P
+    smem = flooding_shared_bytes(params, layout, P)
     by_smem = SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES)
-    blocks = max(1, min(by_smem, -(-max(n, 1) * size // (2 * sms))))
+    blocks = max(1, min(by_smem, -(-max(-(-n // P), 1) * size // (2 * sms))))
     threads = FLOODING_MAX_THREADS // blocks // 32 * 32
-    return max(32, min(threads, -(-(params.num_cols * params.Z_c) // 32) * 32))
+    return max(32, min(threads, -(-(P * params.num_cols * params.Z_c) // 32) * 32))
 
 
 def _fits(schedule: str, params: LDPCParams, P: int) -> bool:
+    """Whether P codewords per block fit: at most MAX_BLOCK_THREADS lanes in
+    whole warps, and the shared memory of the smallest form (packed
+    flooding: messages in the scratch)."""
     if schedule == "flooding" and P == 1:
         return params.Z_c <= MAX_BLOCK_THREADS  # a cluster holds what a block does not
     E = len(params.edges[0])
     return (
         -(-(P * params.Z_c) // 32) * 32 <= MAX_BLOCK_THREADS
-        and shared_bytes(schedule, params.Z_c, params.num_cols,
-                         params.num_rows, E, P) <= MAX_BLOCK_SHARED_BYTES
+        and shared_bytes(schedule, params.Z_c, params.num_cols, params.num_rows, E, P,
+                         on_chip=False) <= MAX_BLOCK_SHARED_BYTES
     )
 
 
@@ -413,12 +441,13 @@ def _sm_count(device: torch.device) -> int:
 def launch_shape(params: LDPCParams, n: int, schedule: str,
                  codewords_per_block: int = 0, sms: int = 132) -> dict:
     """How ``decode`` launches ``n`` codewords: codewords per block, threads
-    per block and, for one-codeword flooding, the layout of the messages
-    (``flooding_layout``; else 0)."""
+    per block and, for flooding, the layout of the messages
+    (``flooding_layout``, ``packed_flooding_layout``; layered: 0)."""
     P = resolve_codewords_per_block(params, n, schedule, codewords_per_block)
-    if schedule == "flooding" and P == 1:
-        layout = flooding_layout(params)
-        threads = flooding_threads(params, n, layout, sms)
+    if schedule == "flooding":
+        layout = (flooding_layout(params) if P == 1
+                  else packed_flooding_layout(params, P))
+        threads = flooding_threads(params, n, layout, sms, P)
     else:
         layout = LAYOUT_SCRATCH
         threads = -(-(P * params.Z_c) // 32) * 32
@@ -627,9 +656,9 @@ def decode(
     threads or shared memory.  Results do not depend on it.
 
     ``_threads`` (internal, for ``tools/flooding_shapes.py``, which times
-    the alternatives to the block-size rule): a one-codeword flooding
-    launch's threads per block instead of ``flooding_threads``'s; 0 keeps
-    the rule.  Results do not depend on it.  ``_lib`` (internal, for
+    the alternatives to the block-size rule): a flooding launch's threads
+    per block instead of ``flooding_threads``'s; 0 keeps the rule.  Results
+    do not depend on it.  ``_lib`` (internal, for
     ``tools/layered_probe.py``): a library of the schedule's kernel to launch
     instead of the built one (``declare``d); None keeps the built one.
 
@@ -638,10 +667,12 @@ def decode(
     scratch for the messages is allocated here (``scratch_shape``): the
     layered min-sum family keeps three 32-bit words per row and lane (two
     with bfloat16 messages), 207 KiB per codeword at BG1 Z=384 (138 KiB in
-    bfloat16); sum-product and the packed flooding kernel keep E*Z messages
-    per codeword (474 KiB in float32 at BG1 Z=384); the one-codeword flooding
-    kernel keeps them in the shared memory of a block or of a cluster
-    (``flooding_layout``) and has no scratch.
+    bfloat16); layered sum-product keeps E*Z messages per codeword (474 KiB
+    in float32 at BG1 Z=384); the one-codeword flooding kernel keeps them in
+    the shared memory of a block or of a cluster (``flooding_layout``) and
+    has no scratch; the packed one keeps them in shared memory where the P
+    codewords' fit a block, else E*Z float32 messages per codeword in a
+    scratch (``packed_flooding_layout``).
     """
     dtype, nci, out_cols, alpha_schedule = _check_arguments(
         params, llr, algorithm, schedule, message_dtype, channel_format,
@@ -681,13 +712,12 @@ def decode(
     shape = launch_shape(params, n, schedule, codewords_per_block, _sm_count(dev))
     P, layout = shape["codewords_per_block"], shape["layout"]
     flooding = schedule == "flooding"
-    if _threads and flooding and P == 1:
+    if _threads and flooding:
         shape["threads"] = int(_threads)  # the kernel checks it
     if flooding:
         cluster = _cluster_sizes(params, layout)
         need = lib.ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, *cluster)
-        assert need == (flooding_shared_bytes(params, layout) if P == 1
-                        else shared_bytes(schedule, Z, nc, nr, E, P))
+        assert need == flooding_shared_bytes(params, layout, P)
     else:
         need = lib.ldpc_layered_shared_bytes(Z, nc, nr, E, P)
         assert need == shared_bytes(schedule, Z, nc, nr, E, P)
@@ -713,6 +743,7 @@ def decode(
             share = lib.ldpc_layered_scratch_bytes(
                 _RULE_CODES[algorithm], int(dtype == torch.bfloat16), Z, nr, E, P)
             assert share * spec[0][0] == scratch.numel() * scratch.element_size()
+        assert (scratch is not None) == (layout == LAYOUT_SCRATCH and (P > 1 or not flooding))
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
         block = ([P, layout, shape["threads"], *_cluster_sizes(params, layout)]
@@ -720,8 +751,8 @@ def decode(
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, name + "_decode")(
-                flat.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-                iters.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                flat.data_ptr(), bits.data_ptr(), ok.data_ptr(), iters.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
                 *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
                 int(channel_format == "d"), lo, hi, int(iterations),
                 int(bool(early_termination)), _RULE_CODES[algorithm],

@@ -1,4 +1,4 @@
-"""Block size of the one-codeword flooding kernel on the card.
+"""Block size of the flooding kernels on the card.
 
 ``ops/decoder_cuda.py`` chooses it by a rule on shape and batch
 (``flooding_threads``, read through ``launch_shape``); no result depends on
@@ -11,7 +11,10 @@ bits, parity flags and iteration counts:
   codewords, sum-product, 50 iterations) at A=1000 (Z=48, -1.0 dB) and
   A=8000 (Z=384, -1.6 dB, a cluster of three blocks per codeword);
 - config #1's launch of ``bler_vs_snr`` (BG2 A=100 R=1/2, Z=20, 2,048
-  codewords, min-sum, 50 iterations, 2.0 dB);
+  codewords, min-sum, 50 iterations, 2.0 dB), one codeword per block and
+  with the packed kernel at 2, 4 and 8 codewords per block, with early
+  termination and run to the budget (every codeword 50 sweeps: the kernels'
+  cost per sweep, without the stragglers);
 - P2's launch (BG2 A=3842, Z=208, 2,048 codewords, sum-product, 8
   iterations, 1.0 dB).
 
@@ -43,6 +46,13 @@ CASES = (
      (512, 1024)),
     ("config #1", dict(BG=2, A=100, G=200, Q_m=2), 2.0, 2048,
      dict(_KW, algorithm="min-sum", iterations=50), (64, 128, 256, 512, 1024)),
+    *((f"config #1, P={P}", dict(BG=2, A=100, G=200, Q_m=2), 2.0, 2048,
+       dict(_KW, algorithm="min-sum", iterations=50, codewords_per_block=P), threads)
+      for P, threads in ((2, (256, 512)), (4, (256, 512, 1024)), (8, (512, 1024)))),
+    *((f"config #1, budget, P={P}", dict(BG=2, A=100, G=200, Q_m=2), 2.0, 2048,
+       dict(_KW, algorithm="min-sum", iterations=50, codewords_per_block=P,
+            early_termination=False), threads)
+      for P, threads in ((1, (128, 512)), (4, (512,)))),
     ("P2", dict(BG=2, A=3842, G=11526, Q_m=2), 1.0, 2048,
      dict(_KW, algorithm="sum-product", iterations=8), (256, 512, 1024)),
 )
@@ -61,7 +71,8 @@ def shape_table(device, cases=CASES, seeds=SEEDS, reps: int = 10):
     rows = []
     for case, fields, esn0_db, n, kw, threads_list in cases:
         params = LDPCParams(**fields)
-        rule = decoder_cuda.launch_shape(params, n, "flooding", 0, sms)
+        rule = decoder_cuda.launch_shape(params, n, "flooding",
+                                         kw.get("codewords_per_block", 0), sms)
         for seed in seeds:
             d = noisy_llrs(params, n, esn0_db, 300 + params.Z_c + 1000 * seed, device)
             ref = decoder_cuda.decode(params, d, **kw)

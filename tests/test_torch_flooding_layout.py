@@ -134,9 +134,11 @@ def test_layout_rule_at_the_paths_shapes():
     # the layered and packed kernels keep one thread per lane
     assert t_cuda.launch_shape(TParams(**P2), 2048, "layered") == dict(
         codewords_per_block=1, threads=224, layout=t_cuda.LAYOUT_SCRATCH)
+    # the packed flooding kernel: P codewords' messages on chip, two blocks
+    # of 512 threads per SM at config #1's launch
     z20 = small_z.table_params(20)
     assert t_cuda.launch_shape(z20, 2048, "flooding", 4) == dict(
-        codewords_per_block=4, threads=96, layout=t_cuda.LAYOUT_SCRATCH)
+        codewords_per_block=4, threads=512, layout=t_cuda.LAYOUT_ON_CHIP)
 
 
 def test_block_size_rule():

@@ -24,6 +24,7 @@ from ldpc_3gpp_tpu_torch.ops.decoder_fast import (
 )
 from ldpc_3gpp_tpu_torch.ops.decoder_layered import compress_row, expand_row
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+from ldpc_3gpp_tpu_torch.tools import small_z
 from ldpc_3gpp_tpu_torch.tools import layered_probe
 
 torch.set_num_threads(1)
@@ -238,7 +239,8 @@ def test_scratch_shape_per_codeword():
     """The scratch ``decode`` gives a launch: 207 KiB (float32) and 138 KiB
     (bfloat16) of compressed words per codeword at BG1 Z=384, E*Z float32
     messages for sum-product (474 KiB); a packed launch's last block whole;
-    none for the one-codeword flooding kernel."""
+    none for the one-codeword flooding kernel, nor for a packed flooding
+    launch whose messages fit on chip."""
     p = LDPCParams(BG=1, A=8424, G=25272, Q_m=2)
     assert p.Z_c == 384
     E = len(p.edges[0])
@@ -258,8 +260,13 @@ def test_scratch_shape_per_codeword():
     assert t_cuda.scratch_shape(q, 53, P=4) == ((14, q.num_rows, 3, 80), torch.int32)
     assert t_cuda.scratch_shape(q, 53, "layered", "sum-product", P=4) == (
         (14, Eq, 80), torch.float32)
-    assert t_cuda.scratch_shape(q, 53, "flooding", "min-sum", "bfloat16", P=4) == (
-        (14, Eq, 80), torch.bfloat16)
+    # the packed flooding kernel keeps four Z=20 codewords' messages on chip;
+    # where they do not fit (BG1 Z=96, two per block) it keeps each
+    # codeword's E*Z unrounded messages, float32 also for bfloat16 messages
+    assert t_cuda.scratch_shape(q, 53, "flooding", "min-sum", "bfloat16", P=4) is None
+    z96 = small_z.params_for_z(1, 96)
+    assert t_cuda.scratch_shape(z96, 53, "flooding", "min-sum", "bfloat16", P=2) == (
+        (27, 2, E, 96), torch.float32)
     assert t_cuda.scratch_shape(q, 53, "flooding") is None
 
 

@@ -142,6 +142,14 @@ def test_shared_bytes_formula():
     one = t_cuda.shared_bytes("layered", 20, q.num_cols, q.num_rows, 197)
     four = t_cuda.shared_bytes("layered", 20, q.num_cols, q.num_rows, 197, 4)
     assert four - one == 3 * q.num_cols * 20 * 4 + 16
+    # packed flooding: P sets of totals and (on chip) of messages, four vote
+    # words per codeword and two per block on top of both plans
+    on_chip = t_cuda.shared_bytes("flooding", 20, q.num_cols, q.num_rows, 197, 4)
+    assert on_chip == 4 * (q.num_cols + 197) * 20 * 4 + 197 * 16 + (
+        q.num_rows + q.num_cols + 2) * 4 + 4 * 16 + 8 == 83_288
+    scratch = t_cuda.shared_bytes("flooding", 20, q.num_cols, q.num_rows, 197, 4,
+                                  on_chip=False)
+    assert on_chip - scratch == 4 * 197 * 20 * 4
 
 
 def test_ctypes_signatures_of_the_new_entries():

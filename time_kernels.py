@@ -13,7 +13,8 @@ events:
   messages);
 - V7-layered and V7-flooding: the packed kernels at config #1's launch,
   BG2 A=100 Z=20, 2,048 codewords at 2.0 dB, min-sum, 4 codewords per
-  block, 12 and 50 iterations;
+  block, 12 and 50 iterations; V7-flooding-P1: the one-codeword flooding
+  kernel at V7-flooding's launch;
 - V2: layered sum-product, BG2 A=2048 Z=208, 1,024 codewords at 2.0 dB, 8
   iterations;
 - V3-SP and V3-NMS: flooding sum-product and min-sum, BG2 A=3842 Z=208,
@@ -80,6 +81,8 @@ def main() -> int:
         ("V7-flooding", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 20,
          dict(iterations=50, algorithm="min-sum", codewords_per_block=cs.CONFIG1_PACK,
               **flooding)),
+        ("V7-flooding-P1", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 20,
+         dict(iterations=50, algorithm="min-sum", codewords_per_block=1, **flooding)),
         ("V2", cs.P3_FIELDS, 2.0, 1024, 20, dict(iterations=8, algorithm="sum-product", **ds)),
         ("V3-SP", cs.P2_FIELDS, 1.0, 1024, 20,
          dict(iterations=8, algorithm="sum-product", **flooding)),
