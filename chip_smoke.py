@@ -25,6 +25,15 @@ kernels with the launch counts set to 0 before each and read after:
   ``MonteCarlo`` with 64QAM, and every lifting size of both base graphs with
   16QAM/64QAM.
 
+Then the user's entry points, each path with the counts set to 0 before
+it and read after: the 'mxu' encoder equal to the roll/XOR encoder at every
+small lifting size and the flagship, and ``encode_to_symbols`` timed with
+both; the segment-op reference decoder on the card equal to itself on the
+CPU and to the flooding kernel; the console commands in-process (the sweeps,
+the testbench's encode and ``--decode`` trials against the C++ oracle, which
+must launch the flooding kernels, the overlay plot) and an API round trip
+equal to the same objects on the CPU.
+
 It holds the packed kernels (several small-Z codewords per block) equal to the
 one-codeword kernels and the plain versions, the op-rate microbenchmark equal
 to its plain version, gates block error rates, required Es/N0 and mean
@@ -1613,6 +1622,279 @@ def phase_times(generator, dev, card):
 
 
 # (variant, kernel source, lines of the TPU kernel it replaces)
+# The 'mxu' encoder held to 'rolls' on the card: (fields, rows) — every
+# small lifting size of the issue's list (Z = 2 exists in base graph 1 only),
+# C > 1 at Z=208 and Z=320, the flagship at MAIN_BATCH rows; rows below 17
+# and odd Z take the padding of torch._int_mm.
+MXU_CASES = (
+    (dict(BG=1, A=28, G=84, Q_m=2), 5),  # Z=2
+    (dict(BG=2, A=2, G=6, Q_m=2), 300),  # Z=3
+    (dict(BG=1, A=94, G=282, Q_m=2), 40),  # Z=5
+    (dict(BG=2, A=26, G=78, Q_m=2), 17),  # Z=7
+    (dict(BG=1, A=314, G=942, Q_m=2), 64),  # Z=15
+    (dict(BG=2, A=74, G=222, Q_m=2), 16),  # Z=15
+    (dict(BG=2, A=100, G=300, Q_m=2), 256),  # Z=20
+    (dict(BG=2, A=3842, G=11526, Q_m=2), 300),  # Z=208, C=2
+    (dict(BG=1, A=20004, G=60012, Q_m=2), 64),  # Z=320, C=3
+    (FLAGSHIP, MAIN_BATCH),  # Z=384
+)
+
+
+def phase_mxu_encoder(dev):
+    """The matrix encoder on the card: ``encode_mxu`` equal to the roll/XOR
+    encoder bit for bit at every case of MXU_CASES; the generator's build
+    seconds and bytes; the int8 core (column-major generator, as kept, and
+    row-major) and the same product in float32 (exact for 0/1 operands,
+    timed once, not kept as a path); ``encode_to_symbols`` at P1 and P2 with
+    both backends (CUDA events, host clock, profiler)."""
+    from ldpc_3gpp_tpu_torch.models.encoder import encode_to_symbols
+    from ldpc_3gpp_tpu_torch.ops import encoder as enc
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+
+    cases = []
+    for fields, rows in MXU_CASES:
+        p = LDPCParams(**fields)
+        enc.parity_generator_device.cache_clear()
+        enc._parity_generator.cache_clear()
+        t0 = time.perf_counter()
+        gp = enc.parity_generator_device(p, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(p.A)
+        c = rng.integers(0, 2, (rows, p.C, p.K)).astype(np.int8)
+        c[..., p.K_prime:] = 0
+        c = torch.from_numpy(c).to(dev)
+        if not torch.equal(enc.encode_mxu(p, c), enc.encode(p, c)):
+            raise AssertionError(f"encode_mxu differs from 'rolls' on the card: {fields}")
+        cases.append(dict(BG=p.BG, A=p.A, Z=p.Z_c, C=p.C, rows=rows * p.C,
+                          generator_shape=list(gp.shape),
+                          generator_bytes=gp.numel(), build_s=build_s))
+
+    p = LDPCParams(**FLAGSHIP)
+    gp = enc.parity_generator_device(p, dev)
+    x = torch.randint(0, 2, (MAIN_BATCH, gp.shape[0]), dtype=torch.int8, device=dev)
+    row_major = gp.contiguous()
+    xf, gf = x.float(), gp.float()
+    if not torch.equal((xf @ gf).to(torch.int32), torch._int_mm(x, gp)):
+        raise AssertionError("float32 and int8 products differ at the flagship")
+    core = dict(
+        shape=[MAIN_BATCH, gp.shape[0], gp.shape[1]],
+        int8_column_major_ms=time_ms(lambda: torch._int_mm(x, gp), 10),
+        int8_row_major_ms=time_ms(lambda: torch._int_mm(x, row_major), 10),
+        float32_ms=time_ms(lambda: xf @ gf, 5),
+        operations=2 * MAIN_BATCH * gp.shape[0] * gp.shape[1],
+    )
+    del row_major, xf, gf
+
+    symbols = {}
+    for name, fields in (("P1", FLAGSHIP), ("P2", P2_FIELDS)):
+        p = LDPCParams(**fields)
+        a = torch.randint(0, 2, (MAIN_BATCH, p.A), dtype=torch.int8, device=dev)
+        want = encode_to_symbols(p, a, "QPSK")
+        row = {}
+        for backend in ("rolls", "mxu"):
+            def call():
+                return encode_to_symbols(p, a, "QPSK", backend=backend)
+
+            if not torch.equal(call(), want):
+                raise AssertionError(f"encode_to_symbols '{backend}' differs at {name}")
+            event_ms = time_ms(call, 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / 10 * 1e3
+            prof = profile_steps(call, 3, host_ms)
+            row[backend] = dict(
+                event_ms=event_ms, host_ms=host_ms,
+                device_kernels_per_call=prof.get("kernels_per_step"),
+                device_busy_ms=prof["device_busy_ms_per_step"], top=prof["top"])
+        symbols[name] = dict(fields, C=p.C, Z=p.Z_c, blocks=MAIN_BATCH, **row)
+    return dict(cases=cases, core=core, encode_to_symbols=symbols)
+
+
+# The reference decoder held to itself on the CPU (tolerance 0) and to the
+# flooding kernel: (fields, codewords, Es/N0 in dB; ET budget, run-to-budget
+# budget).  At Z=208 sum-product is cut to budgets of 2 and 1 sweeps: the
+# plain phi recipe on the host takes about 10 s per sweep of 256 codewords
+# there (Z=20 runs it to a mix of early stops).
+REFERENCE_CASES = (
+    (dict(BG=2, A=100, G=300, Q_m=2), 64, 1.0, 10, 6),  # Z=20
+    (dict(BG=2, A=2048, G=6144, Q_m=2), 256, 4.5, 8, 2),  # Z=208
+)
+REFERENCE_SP_BUDGET_Z208 = (2, 1)
+
+
+def phase_reference_decoder(dev):
+    """Backend 'reference' (the segment-op oracle) on the card equals the
+    same decoder on the CPU, bits, parity flags and iteration counts, for
+    the three rules with early termination and run to budget, and equals the
+    flooding kernel on the same card inputs; its time beside the kernel's."""
+    from ldpc_3gpp_tpu_torch.ops import decoder as ref
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+
+    out = []
+    for fields, n, esn0_db, et_budget, run_budget in REFERENCE_CASES:
+        p = LDPCParams(**fields)
+        d, _ = noisy_d_tilde(p, "QPSK", esn0_db, n, 11, dev)
+        llr = codeword_llrs(p, d[:, 0])
+        llr_cpu = llr.cpu()
+        for algorithm in ("min-sum", "offset-min-sum", "sum-product"):
+            budgets = (et_budget, run_budget)
+            if algorithm == "sum-product" and p.Z_c >= 208:
+                budgets = REFERENCE_SP_BUDGET_Z208
+            for early, iterations in zip((True, False), budgets):
+                kw = dict(iterations=iterations, algorithm=algorithm,
+                          early_termination=early)
+                on_gpu = ref.decode(p, llr, **kw)
+                on_cpu = ref.decode(p, llr_cpu, **kw)
+                require_equal(type(on_gpu)(*(t.cpu() for t in on_gpu)), on_cpu,
+                              ("cpu", kw))
+                kernel = decoder_cuda.decode(p, llr, schedule="flooding", **kw)
+                require_equal(kernel, on_gpu, ("kernel", kw))
+                out.append(dict(Z=p.Z_c, codewords=n, **kw,
+                                mean_iterations=float(on_gpu.iterations.float().mean()),
+                                parity_ok=int(on_gpu.parity_ok.sum())))
+    fields, n, esn0_db, et_budget, _ = REFERENCE_CASES[1]
+    p = LDPCParams(**fields)
+    d, _ = noisy_d_tilde(p, "QPSK", esn0_db, n, 12, dev)
+    llr = codeword_llrs(p, d[:, 0])
+    kw = dict(iterations=et_budget, algorithm="sum-product")
+    timing = dict(Z=p.Z_c, codewords=n, **kw,
+                  reference_ms=time_ms(lambda: ref.decode(p, llr, **kw), 3, warmup=1),
+                  kernel_ms=time_ms(lambda: decoder_cuda.decode(
+                      p, llr, schedule="flooding", **kw), 5))
+    return dict(cases=out, max_abs_diff=0, tolerance=0, time=timing)
+
+
+def phase_entry_points(dev, tmp):
+    """The console commands and the API, in-process on the card, writing
+    into ``tmp``: ``bler_sweep_main`` (with its plots where matplotlib is
+    installed), ``snr_vs_a_main``, ``testbench_main`` encode and ``--decode``
+    against the C++ oracle (launch counts set to 0 before, read after: the
+    decode must run the flooding kernels), ``plot_results_main``, and an
+    API round trip (HARQ over two redundancy versions) whose decoder on the
+    card equals the same decoder with ``device='cpu'`` on the same LLRs."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from ldpc_3gpp_tpu_torch import api, cli
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    watch = Stopwatch()
+    rec = {"matplotlib": plots}
+
+    def run(main, argv):
+        buf = io.StringIO()
+        decoder_cuda.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        return buf.getvalue(), dict(decoder_cuda.LAUNCHES)
+
+    sweep_dir = os.path.join(tmp, "sweep")
+    argv = ["--A", "100", "--rate", "0.5", "--algorithm", "min-sum",
+            "--iterations", "8", "--target-block-errors", "50",
+            "--target-bler", "1e-2", "--batch-per-device", "2048",
+            "--results-dir", sweep_dir]
+    text, launches = run(cli.bler_sweep_main,
+                         argv + (["--live-plot"] if plots else ["--no-plot"]))
+    with open(os.path.join(sweep_dir, "BLER_vs_SNR_100_0.5_2_QPSK_8_50_0_0.txt")) as f:
+        points = [tuple(float(v) for v in ln.split()) for ln in f if not ln.startswith("#")]
+    blers = [b for _, b in points]
+    if not points or blers[-1] > 1e-2 or blers != sorted(blers, reverse=True):
+        raise AssertionError(f"bler_sweep_main: not a falling waterfall: {points}")
+    pngs = sorted(f for f in os.listdir(sweep_dir) if f.endswith(".png"))
+    if plots and pngs != ["BLER_vs_SNR.png", "BLER_vs_SNR_live.png"]:
+        raise AssertionError(f"bler_sweep_main wrote {pngs}")
+    rec["bler_sweep"] = dict(points=points, pngs=pngs, launches=launches,
+                             seconds=watch.lap())
+
+    snr_dir = os.path.join(tmp, "snr")
+    text, launches = run(cli.snr_vs_a_main, [
+        "--A", "500", "--iterations", "8", "--target-block-errors", "30",
+        "--target-bler", "1e-1", "--esn0-start", "-1.0", "--esn0-delta", "0.25",
+        "--batch-per-device", "1024", "--no-plot", "--results-dir", snr_dir])
+    with open(os.path.join(snr_dir, "SNR_vs_A_0.1_0.333333_1_QPSK_8_30_0.txt")) as f:
+        required = f.read().split()
+    if len(required) != 2 or required[0] != "500":
+        raise AssertionError(f"snr_vs_a_main wrote {required}")
+    rec["snr_vs_a"] = dict(A=500, required_esn0_db=float(required[1]),
+                           launches=launches, seconds=watch.lap())
+
+    text, launches = run(cli.testbench_main, ["--trials", "50", "--seed", "7"])
+    ok = text.count("] ok ")
+    if "MISMATCH" in text or f"{ok}/50 configs bit-exact" not in text or ok < 15:
+        raise AssertionError(f"testbench encode: {text[-2000:]}")
+    rec["testbench_encode"] = dict(trials=50, configs_checked=ok, mismatches=0,
+                                   seconds=watch.lap())
+
+    text, launches = run(cli.testbench_main,
+                         ["--trials", "12", "--decode", "--max-a", "4000", "--seed", "7"])
+    ok = text.count("] ok decode")
+    if "MISMATCH" in text or ok < 8 or f"{ok}/12 configs bit-exact" not in text:
+        raise AssertionError(f"testbench --decode: {text[-2000:]}")
+    if launches["ldpc_flooding"] < 1:
+        raise AssertionError(f"testbench --decode ran no flooding kernel: {launches}")
+    rec["testbench_decode"] = dict(
+        trials=12, configs_checked=ok, mismatches=0,
+        rules=sorted({r for r in ("min-sum", "offset-min-sum", "sum-product")
+                      if f" {r} it=" in text}),
+        flooding_launches=launches["ldpc_flooding"], launches=launches,
+        seconds=watch.lap())
+
+    if plots:
+        files = [os.path.join(sweep_dir, f) for f in os.listdir(sweep_dir)
+                 if f.endswith(".txt")]
+        out = os.path.join(tmp, "overlay.png")
+        run(cli.plot_results_main, files + ["--out", out])
+        if not os.path.exists(out):
+            raise AssertionError("plot_results_main wrote no PNG")
+        rec["plot_results"] = dict(png=True, seconds=watch.lap())
+    else:
+        rec["plot_results"] = "not run: matplotlib is not installed on this machine"
+
+    kw = dict(BG=2, A=100, G=300, Q_m=2)
+    dkw = dict(kw, I_HARQ=1, iterations=8)  # the default decoder: sum-product
+    enc = api.NRLDPCEncoder(**kw)
+    mod = api.NRModulator("QPSK")
+    chan = api.AWGNChannel(snr_db=-0.5, seed=3)
+    dem = api.NRDemodulator("QPSK", variance=10 ** 0.05)
+    dec, dec_cpu = api.NRLDPCDecoder(**dkw), api.NRLDPCDecoder(**dkw, device="cpu")
+    enc_cpu = api.NRLDPCEncoder(**kw, device="cpu")
+    mod_cpu = api.NRModulator("QPSK", device="cpu")
+    rng = np.random.default_rng(8)
+    decoder_cuda.reset_launches()
+    steps = []
+    for trial in range(2):
+        a = rng.integers(0, 2, (16, kw["A"])).astype(np.int8)
+        dec.reset()
+        dec_cpu.reset()
+        for rv in (0, 2):
+            for obj in (enc, enc_cpu, dec, dec_cpu):
+                obj.rv_id = rv
+            g = enc.step(a)
+            tx = mod.step(g)
+            if not (np.array_equal(g, enc_cpu.step(a))
+                    and np.array_equal(tx, mod_cpu.step(g))):
+                raise AssertionError("API encoder or modulator: card differs from CPU")
+            llr = dem.step(chan.step(tx))
+            (a_gpu, ok_gpu), (a_cpu, ok_cpu) = dec.step(llr), dec_cpu.step(llr)
+            if not (np.array_equal(a_gpu, a_cpu) and np.array_equal(ok_gpu, ok_cpu)):
+                raise AssertionError("API decoder: card differs from CPU")
+            steps.append(int(ok_gpu.sum()))
+    rec["api_round_trip"] = dict(
+        config="BG2 A=100 G=300 QPSK, default decoder, HARQ rv (0, 2), "
+        "16 blocks, 2 trials", esn0_db=-0.5, tb_ok_by_step=steps,
+        launches=dict(decoder_cuda.LAUNCHES), seconds=watch.lap())
+    if decoder_cuda.LAUNCHES["ldpc_flooding"] < 1 or steps[1] <= steps[0]:
+        raise AssertionError(f"API round trip: {rec['api_round_trip']}")
+    return rec
+
+
 VARIANTS = [
     ("V1", LAYERED_SOURCE, TPU_KERNEL),
     ("V1'", LAYERED_SOURCE, TPU_KERNEL + " (:213-214, 243-261, 358-359)"),
@@ -1788,6 +2070,14 @@ def main() -> int:
     qam, qam_launches = phase_qam64_gate(dev)
     emit({"phase": "qam64_gate", "seconds": watch.lap(), "points": qam,
           "launches": qam_launches})
+
+    emit({"phase": "mxu_encoder", "card": card, **phase_mxu_encoder(dev),
+          "seconds": watch.lap()})
+    emit({"phase": "reference_decoder", "card": card,
+          **phase_reference_decoder(dev), "seconds": watch.lap()})
+    with tempfile.TemporaryDirectory() as tmp:
+        entry = phase_entry_points(dev, tmp)
+    emit({"phase": "entry_points", **entry, "seconds": watch.lap()})
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})

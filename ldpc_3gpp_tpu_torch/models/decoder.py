@@ -17,8 +17,7 @@ Everything runs on the device of the input LLRs.  Both schedules (flooding,
 layered), the three check rules (sum-product, min-sum, offset-min-sum) and
 ``message_dtype`` 'float32' / 'bfloat16' are ported; the defaults of
 ``algorithm`` and ``schedule`` are the JAX package's (sum-product, flooding),
-the literal comm.LDPCDecoder semantics of the reference.  Still to port
-(ROADMAP.md): backend 'reference'.
+the literal comm.LDPCDecoder semantics of the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +27,7 @@ import torch
 
 from ..ops import decoder_cuda
 from ..ops.crc import crc_check
+from ..ops.decoder import decode as bp_decode_ref
 from ..ops.decoder_fast import decode as bp_decode_fast
 from ..ops.decoder_layered import decode as bp_decode_layered
 from ..ops.modulation import Q_M, demodulate_planes
@@ -42,7 +42,9 @@ from ..utils.device import resolve_device
 #   'fast' — the plain PyTorch decoders on whatever device the tensors are:
 #            flooding (ops/decoder_fast.py) or layered
 #            (ops/decoder_layered.py); float32 messages only
-DECODE_BACKENDS = ("auto", "cuda", "fast")
+#   'reference' — flooding, the segment-op oracle (ops/decoder.py), on
+#            whatever device the tensors are; float32 messages only
+DECODE_BACKENDS = ("auto", "cuda", "fast", "reference")
 
 # Large finite stand-in for the reference's +inf filler LLRs
 # (NRLDPCDecoder.m:264).  Finite so that inf - inf NaNs can never appear in
@@ -165,11 +167,13 @@ def _kernel_engaged(backend: str, algorithm: str, params: LDPCParams) -> bool:
     )
 
 
-def _bp_decode_fast(params, llr, *, schedule, **kw):
-    """Backend 'fast': dispatch on ``schedule`` to the plain decoders."""
+def _bp_decode_plain(params, llr, *, backend, schedule, **kw):
+    """The plain decoders: backend 'fast' (flooding or layered), or
+    'reference' (flooding only), dispatched on ``schedule``."""
     if schedule == "flooding":
-        return bp_decode_fast(params, llr, **kw)
-    if schedule == "layered":
+        fn = bp_decode_ref if backend == "reference" else bp_decode_fast
+        return fn(params, llr, **kw)
+    if schedule == "layered" and backend != "reference":
         return bp_decode_layered(params, llr, **kw)
     raise ValueError(f"backend does not implement schedule {schedule!r}")
 
@@ -233,11 +237,6 @@ def decode_transport_block_d(
     plain version; backend 'cuda' raises for CPU tensors.
     """
     if backend not in DECODE_BACKENDS:
-        if backend == "reference":
-            raise NotImplementedError(
-                "backend 'reference' is not ported yet (ROADMAP.md queue A: "
-                "ops/decoder.py)"
-            )
         raise ValueError(f"unknown backend {backend!r}")
     dev = d_tilde.device
     if backend == "cuda" and dev.type != "cuda":
@@ -268,7 +267,7 @@ def decode_transport_block_d(
         # iteration-dependent NMS normalization: the kernels have it in both
         # schedules, the plain decoders of backend 'fast' only in the
         # layered one (flooding there is the literal reference semantics)
-        if not engaged and schedule != "layered":
+        if not engaged and (schedule != "layered" or backend == "reference"):
             raise ValueError(
                 "alpha_schedule requires the kernel backends or the plain "
                 "layered decoder (schedule='layered')"
@@ -311,11 +310,11 @@ def decode_transport_block_d(
         if engaged:
             res = decoder_cuda.decode(params, dec_llr, **kw)
         else:
-            # backend 'fast', or 'auto' for a code the kernels do not take
-            # knobs of the kernels, not semantics
+            # backend 'fast' or 'reference', or 'auto' for a code the
+            # kernels do not take; knobs of the kernels, not semantics
             kw.pop("message_dtype", None)
             kw.pop("codewords_per_block", None)
-            res = _bp_decode_fast(params, dec_llr, **kw)
+            res = _bp_decode_plain(params, dec_llr, backend=backend, **kw)
     c_hat = res.bits  # (..., C, num_cols*Z), or (..., C, K) from the fused path
 
     # Section 5.2.2 inverse: CB CRC gate (only exists when C > 1,

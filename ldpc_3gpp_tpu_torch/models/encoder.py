@@ -20,23 +20,16 @@ import torch
 
 from ..ops.crc import crc_attach
 from ..ops.encoder import encode as ldpc_encode_rolls
+from ..ops.encoder import encode_mxu as ldpc_encode_mxu
 from ..ops.modulation import Q_M, modulate_planes
 from ..ops.rate_match import interleave, select_bits
 from ..spec.params import LDPCParams
 
-# LDPC core implementations:
-#   'rolls' — structured XOR-of-rolled-blocks, no extra memory
-# Still to port (ROADMAP.md): 'mxu', the dense GF(2) generator matmul.
-ENCODE_BACKENDS = {"rolls": ldpc_encode_rolls}
-
-
-def _encode_backend(backend: str):
-    if backend == "mxu":
-        raise NotImplementedError(
-            "encode backend 'mxu' is not ported yet (ROADMAP.md queue A: "
-            "ops/encoder.py encode_mxu)"
-        )
-    return ENCODE_BACKENDS[backend]
+# LDPC core implementations (bit-identical; see ops/encoder.py):
+#   'rolls' — structured XOR-of-rolled-blocks, no extra memory (default)
+#   'mxu'   — dense GF(2) generator matmul (int8 in, int32 sums); keeps a
+#             K x P int8 generator per config on the device
+ENCODE_BACKENDS = {"mxu": ldpc_encode_mxu, "rolls": ldpc_encode_rolls}
 
 
 def segment(params: LDPCParams, b: torch.Tensor) -> torch.Tensor:
@@ -111,7 +104,7 @@ def _encode_to_d(params: LDPCParams, a: torch.Tensor, backend: str) -> torch.Ten
     )
     b = crc_attach(a, params.tb_crc)
     c = segment(params, b)
-    cw = _encode_backend(backend)(params, c)
+    cw = ENCODE_BACKENDS[backend](params, c)
     # Puncture the first 2*Z_c systematic bits (NRLDPCEncoder.m:149-156).
     return cw[..., 2 * params.Z_c :]
 

@@ -15,8 +15,7 @@ layout as the reference (EsN0\\tBLER per line / A\\tEsN0 per line), so its
 downstream plotting/aggregation workflow carries over.  File names, line
 formats, resume and repair are byte for byte those of the JAX package's
 ``parallel/sweep.py``; one ``torch.Generator`` per curve, seeded from
-``seed``, takes the place of its split keys.  ``live_plot=True`` waits for
-``utils/plotting.py`` (ROADMAP.md queue A.8).
+``seed``, takes the place of its split keys.
 """
 from __future__ import annotations
 
@@ -95,14 +94,6 @@ def _scan_resume_file(fname, parse) -> Dict:
         with open(fname, "w") as fid:
             fid.writelines(keep)
     return done
-
-
-def _refuse_live_plot(live_plot: bool) -> None:
-    if live_plot:
-        raise NotImplementedError(
-            "live_plot=True is not ported yet (ROADMAP.md queue A.8: "
-            "utils/plotting.py)"
-        )
 
 
 @dataclasses.dataclass
@@ -259,12 +250,13 @@ def bler_vs_snr(
 
     ``resume=True`` skips Es/N0 points already present in the results file
     (the reference's append-per-point crash recovery, plot_BLER_vs_SNR.m:165,
-    made explicit).
+    made explicit).  ``live_plot=True`` re-renders
+    ``results_dir/BLER_vs_SNR_live.png`` after every point (the reference's
+    per-point figure refresh, plot_BLER_vs_SNR.m:157-160).
 
     Runs on a CUDA device unless ``device='cpu'`` is passed; raises if CUDA
-    is asked for and absent.  ``live_plot=True`` is not ported yet.
+    is asked for and absent.
     """
-    _refuse_live_plot(live_plot)
     os.makedirs(results_dir, exist_ok=True)
     out: Dict[tuple, List[SweepPoint]] = {}
     for bg_i in bg:
@@ -337,6 +329,16 @@ def bler_vs_snr(
                                 f"{target_block_errors} target errors — "
                                 "BLER is an under-sampled estimate"
                             )
+                        if live_plot:
+                            from ..utils.plotting import plot_bler_curves
+
+                            live = dict(out)
+                            live[(bg_i, r_i, a_i)] = points
+                            plot_bler_curves(
+                                live,
+                                os.path.join(results_dir,
+                                             "BLER_vs_SNR_live.png"),
+                            )
                         if verbose:
                             mean_it = pt.iterations / max(pt.blocks * cfg.params.C, 1)
                             print(
@@ -377,11 +379,12 @@ def snr_vs_a(
 
     ``resume=True`` skips A values already present in the results file
     (append-per-point crash recovery, same contract as ``bler_vs_snr``).
+    ``live_plot=True`` re-renders ``results_dir/SNR_vs_A_live.png`` after
+    every A (plot_SNR_vs_A.m:177-184).
 
     Runs on a CUDA device unless ``device='cpu'`` is passed; raises if CUDA
-    is asked for and absent.  ``live_plot=True`` is not ported yet.
+    is asked for and absent.
     """
-    _refuse_live_plot(live_plot)
     os.makedirs(results_dir, exist_ok=True)
     out: Dict[float, List[Tuple[int, float]]] = {}
     for r_i in rate:
@@ -468,6 +471,12 @@ def snr_vs_a(
                             "required Es/N0 is an under-sampled estimate"
                         )
                 fid.flush()
+                if live_plot:
+                    from ..utils.plotting import plot_snr_vs_a as _plot
+
+                    live = dict(out)
+                    live[r_i] = curve
+                    _plot(live, os.path.join(results_dir, "SNR_vs_A_live.png"))
                 if verbose:
                     print(f"A={a_i}: required Es/N0 = {required:.3f} dB")
         out[r_i] = curve

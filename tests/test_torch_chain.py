@@ -141,8 +141,10 @@ def test_encode_chain_matches_jax(fields, modulation):
     tx_t = t_enc.encode_to_symbols(pt, torch.from_numpy(a), modulation)
     _eq(tx_j, tx_t)
     assert torch.equal(tx_t, t_mod.modulate(g_t, modulation))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_enc.encode_transport_block(pt, torch.from_numpy(a), backend="mxu")
+    # the matrix encoder gives the same bits and symbols
+    assert torch.equal(t_enc.encode_transport_block(pt, torch.from_numpy(a), backend="mxu"), g_t)
+    assert torch.equal(
+        t_enc.encode_to_symbols(pt, torch.from_numpy(a), modulation, backend="mxu"), tx_t)
 
 
 @pytest.mark.parametrize("fields", [
@@ -212,8 +214,8 @@ def test_decode_transport_block_from_rate_matched_llrs():
 
 def test_unported_decoder_options_raise():
     """What used to raise as unported now runs (the defaults, flooding,
-    sum-product, bfloat16 messages) or raises what the JAX package raises;
-    backend 'reference' is still to port."""
+    sum-product, bfloat16 messages, backend 'reference') or raises what the
+    JAX package raises."""
     pt = TParams(**FIELDS)
     a, _ = _inputs()
     g = t_enc.encode_transport_block(pt, torch.from_numpy(a[:2]))
@@ -229,7 +231,12 @@ def test_unported_decoder_options_raise():
     ):
         res = t_dec.decode_transport_block_d(pt, d, **kw)
         assert res.tb_ok.all() and torch.equal(res.a_hat, want), kw
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ref_kw = dict(iterations=ITERATIONS, algorithm="min-sum")
+    ref = t_dec.decode_transport_block_d(pt, d, backend="reference", **ref_kw)
+    fast = t_dec.decode_transport_block_d(pt, d, backend="fast", **ref_kw)
+    assert ref.tb_ok.all() and torch.equal(ref.a_hat, want)
+    assert torch.equal(ref.iterations, fast.iterations)
+    with pytest.raises(ValueError, match="schedule"):  # flooding only, as in JAX
         t_dec.decode_transport_block_d(pt, d, backend="reference", **DECODE_KW)
     with pytest.raises(ValueError, match="f32-only"):  # as the JAX package
         t_dec.decode_transport_block_d(

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import ldpc_3gpp_tpu_torch
+from ldpc_3gpp_tpu_torch import api, cli
 from ldpc_3gpp_tpu_torch.models import chain as t_chain
 from ldpc_3gpp_tpu_torch.models import decoder as t_dec
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
@@ -26,7 +27,8 @@ EXPECTED_MODULES = {
     "ops.crc", "ops.encoder", "ops.rate_match", "ops.modulation", "ops.channel",
     "ops.decoder", "ops.decoder_fast", "ops.decoder_layered", "ops.decoder_cuda",
     "models.encoder", "models.decoder", "models.chain",
-    "utils.rng", "utils.device",
+    "utils.rng", "utils.device", "utils.golden", "utils.plotting",
+    "utils.profiling", "utils.fingerprint", "api", "cli",
     "parallel.montecarlo", "parallel.sweep", "tools.op_rates", "tools.small_z",
     "tools.flooding_shapes",
 }
@@ -85,7 +87,7 @@ def test_spec_data_and_kernel_source_ship_with_the_package():
         assert os.path.exists(os.path.join(PKG, "csrc", name)), name
 
 
-def test_entry_points_do_not_fall_back_to_the_cpu():
+def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works here")
     p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
@@ -102,6 +104,23 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
         t_dec.init_harq_state(p, (2,))
     r = t_chain.simulate_batch(cfg, make_generator(0, "cpu"), 1.0, 4, device="cpu")
     assert r.tb_ok.device.type == "cpu"
+    # the API classes and the console commands
+    kw = dict(BG=2, A=100, G=300, Q_m=2)
+    for make in (lambda: api.NRLDPCEncoder(**kw), lambda: api.NRLDPCDecoder(**kw),
+                 lambda: api.NRModulator("QPSK"), lambda: api.NRDemodulator("QPSK"),
+                 lambda: api.AWGNChannel(1.0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert api.NRLDPCEncoder(**kw, device="cpu").device.type == "cpu"
+    sweep = ["--A", "100", "--rate", "0.5", "--no-plot", "--results-dir"]
+    for main, argv in (
+        (cli.bler_sweep_main, sweep),
+        (cli.snr_vs_a_main, ["--bg", "2"] + sweep),
+        (cli.testbench_main, ["--trials", "1"]),
+        (cli.testbench_main, ["--trials", "1", "--decode"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv + ([str(tmp_path)] if argv[-1] == "--results-dir" else []))
 
 
 def test_chip_smoke_fails_without_a_gpu():

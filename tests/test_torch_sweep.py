@@ -193,7 +193,7 @@ def test_scan_resume_file_matches(tmp_path, name):
         assert results[1][1] == b"0.000000\t1.0e-01\n"
 
 
-def test_constants_config_and_live_plot():
+def test_constants_config_and_live_plot(tmp_path):
     assert t_sweep.CAPPED_PREFIX == j_sweep.CAPPED_PREFIX
     cj = j_sweep._make_config(1000, 1 / 3, 1, "16QAM", (0, 2), 7, "min-sum",
                               N_L=2, schedule="layered")
@@ -204,6 +204,12 @@ def test_constants_config_and_live_plot():
         assert getattr(ct, field) == getattr(cj, field)
     pj, pt = j_sweep.SweepPoint(1.0, 0, 0, 0, 0), t_sweep.SweepPoint(1.0, 0, 0, 0, 0)
     assert pj.bler == pt.bler == 0.0 and dataclasses.asdict(pj) == dataclasses.asdict(pt)
-    for fn in (t_sweep.bler_vs_snr, t_sweep.snr_vs_a):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            fn(live_plot=True, device="cpu")
+    # live_plot=True re-renders the driver's live PNG, as the JAX drivers do
+    small = dict(rate=(0.5,), algorithm="min-sum", iterations=4,
+                 target_block_errors=10, target_bler=0.3, esn0_start=2.0,
+                 batch_per_device=64, device="cpu", verbose=False, live_plot=True)
+    t_sweep.bler_vs_snr(A=(100,), bg=(2,), results_dir=str(tmp_path), **small)
+    t_sweep.snr_vs_a(A=(100,), bg=2, esn0_delta=0.5, results_dir=str(tmp_path), **small)
+    for png in ("BLER_vs_SNR_live.png", "SNR_vs_A_live.png"):
+        with open(os.path.join(tmp_path, png), "rb") as f:
+            assert f.read(4) == b"\x89PNG", png
