@@ -34,6 +34,17 @@ the testbench's encode and ``--decode`` trials against the C++ oracle, which
 must launch the flooding kernels, the overlay plot) and an API round trip
 equal to the same objects on the CPU.
 
+Then the multi-process path (``distributed``): ``MonteCarlo`` at P1 in a
+world of one under NCCL equal to the same seed without a group, two ranks on
+the one card under gloo (started through ``parallel/launcher.py``) equal to
+the sum of the single-process runs of their two streams, and
+``dryrun_multichip(2)`` and ``entry()`` through the kernels; and the campaign
+tools (``campaign``): the bulk tool at the four bulk goldens'
+configurations, each BLER inside the two-sample bound of its golden and
+its TB/s read from a window of at least three seconds, and two
+entries of the campaign matrix with their calibrated Es/N0 beside the
+golden's.  The lifting-size phase runs through the lifting-sweep tool.
+
 It holds the packed kernels (several small-Z codewords per block) equal to the
 one-codeword kernels and the plain versions, the op-rate microbenchmark equal
 to its plain version, gates block error rates, required Es/N0 and mean
@@ -600,37 +611,32 @@ def phase_packed_flooding(dev, tally):
 
 def phase_lifting_sweep(dev):
     """Every lifting size of both base graphs, alternating 16QAM and 64QAM:
-    the configurations of golden/lifting_sweep.json (made by
-    tools/lifting_sweep.py: min-sum, flooding, 20 iterations), 16 blocks each
-    at 30 dB through ``simulate_batch`` and the kernel (backend 'auto').  As
-    in the golden, no block may fail."""
-    from ldpc_3gpp_tpu_torch.models.chain import ChainConfig, simulate_batch
+    the configurations of ``ldpc_3gpp_tpu_torch/tools/lifting_sweep.py``
+    (min-sum, flooding, 20 iterations), each held equal to its record in
+    golden/lifting_sweep.json (made by the JAX package's tool), 16 blocks
+    each at 30 dB through the tool's round trip, ``simulate_batch`` and the
+    kernel (backend 'auto').  As in the golden, no block may fail."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
-    from ldpc_3gpp_tpu_torch.ops.modulation import Q_M
-    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
-    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+    from ldpc_3gpp_tpu_torch.tools import lifting_sweep
 
     with open(os.path.join(ROOT, "golden", "lifting_sweep.json")) as f:
         golden = json.load(f)
     if golden["high_snr_failures"] != 0:
         raise AssertionError("the golden itself records high-SNR failures")
+    records = [r for r in golden["results"] if r["status"] != "unsupported"]
     torch.cuda.synchronize()
     decoder_cuda.reset_launches()
     configs, failures, zs = 0, [], set()
-    for rec in golden["results"]:
-        if rec["status"] == "unsupported":
-            continue
-        params = LDPCParams(BG=rec["bg"], A=rec["A"], G=rec["G"],
-                            Q_m=Q_M[rec["modulation"]])
-        if params.Z_c != rec["Z"] or params.C != 1:
-            raise AssertionError(f"golden record does not give its Z: {rec}")
-        cfg = ChainConfig(params=params, modulation=rec["modulation"],
-                          iterations=20, algorithm="min-sum", backend="auto")
-        r = simulate_batch(cfg, make_generator(rec["Z"], dev), 30.0, 16, device=dev)
+    for (bg, Z, mod, rate, params), rec in zip(
+            (c for c in lifting_sweep.sweep_configs() if c[4] is not None), records):
+        if ((bg, Z, params.A, params.G, mod, round(rate, 4))
+                != (rec["bg"], rec["Z"], rec["A"], rec["G"], rec["modulation"], rec["rate"])):
+            raise AssertionError(f"the tool's configuration differs from the golden's: {rec}")
+        blocks, errors = lifting_sweep.high_snr_errors(params, mod, Z, 16, dev)
         configs += 1
-        zs.add((rec["bg"], rec["Z"]))
-        if int(r.block_errors) or int(r.blocks) != 16:
-            failures.append(dict(bg=rec["bg"], Z=rec["Z"], errors=int(r.block_errors)))
+        zs.add((bg, Z))
+        if errors or blocks != 16:
+            failures.append(dict(bg=bg, Z=Z, blocks=blocks, errors=errors))
     torch.cuda.synchronize()
     out = dict(configs=configs, golden_configs=golden["configs_run"],
                lifting_sizes=len(zs), block_errors=failures,
@@ -1895,6 +1901,334 @@ def phase_entry_points(dev, tmp):
     return rec
 
 
+DIST_SEED = 17
+# (b): blocks per rank and call of the two ranks on the one card
+DIST_BATCH = 256
+# the ranks of (b) and (c) are joined under this timeout, then killed
+DIST_TIMEOUT_S = 300
+DIST_WORKER = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from ldpc_3gpp_tpu_torch.parallel.launcher import init_distributed
+assert init_distributed(backend="gloo", timeout_s=240)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
+from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+seed, batch, esn0 = int(sys.argv[2]), int(sys.argv[3]), float(sys.argv[4])
+mc = MonteCarlo(chip_smoke.flagship_config(), batch_per_device=batch, device="cuda")
+torch.cuda.synchronize()
+decoder_cuda.reset_launches()
+c = mc.run(make_generator(seed, "cuda"), esn0)
+torch.cuda.synchronize()
+launches = dict(decoder_cuda.LAUNCHES)
+ms = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    mc.run(make_generator(seed + 1, "cuda"), esn0)
+    ms.append((time.perf_counter() - t0) * 1e3)
+print("RESULT " + json.dumps(dict(
+    rank=dist.get_rank(), world=mc.world_size, backend=dist.get_backend(),
+    device=str(torch.cuda.current_device()), blocks_per_run=mc.blocks_per_run,
+    counters=dict(c, iteration_hist=c["iteration_hist"].tolist()),
+    launches=launches, call_ms=ms)), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def plain_counters(c):
+    return dict(c, iteration_hist=[int(v) for v in c["iteration_hist"]])
+
+
+def call_ms(mc, seed, esn0_db, dev):
+    """Host-clock milliseconds of one ``MonteCarlo.run`` (it ends in its
+    host fetch)."""
+    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+
+    generator = make_generator(seed, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc.run(generator, esn0_db)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_distributed(dev):
+    """The multi-process path on the one card.
+
+    (a) World size 1 under NCCL, in this process (``init_distributed`` with a
+    free local port): ``MonteCarlo`` at P1 (1,024 blocks, 2 steps, 1.0 dB)
+    gives the counters of the same seed without a group, bit for bit, through
+    V1; the call's host-clock ms with the all-reduce, between calls without
+    it made before the group and after it.
+    (b) Two ranks on the card under gloo (NCCL refuses two ranks on one
+    device), started through the launcher: both print the same counters,
+    equal to the sum of this process's single-process runs seeded
+    ``rank_seed(seed, 0)`` and ``rank_seed(seed, 1)``.  (c)
+    ``dryrun_multichip(2, device="cuda")``, whose ranks must launch both the
+    flooding and the layered kernel, and ``entry()`` once."""
+    import torch.distributed as dist
+
+    from ldpc_3gpp_tpu_torch.entry import dryrun_multichip, entry
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.parallel.launcher import in_group, init_distributed
+    from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
+    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+
+    watch = Stopwatch()
+    cfg = flagship_config()
+    out = {}
+
+    # (a) MonteCarlo sums over the default group whenever one exists, so the
+    # calls without a group are timed before it is made and after it is gone
+    mc = MonteCarlo(cfg, batch_per_device=MAIN_BATCH, steps_per_call=MAIN_STEPS, device=dev)
+    want = plain_counters(mc.run(make_generator(DIST_SEED, dev), MAIN_ESN0_DB))
+    times = {"no_group": [call_ms(mc, DIST_SEED + 1, MAIN_ESN0_DB, dev) for _ in range(2)],
+             "nccl_world_1": []}
+    assert init_distributed(coordinator_address=f"127.0.0.1:{free_port()}",
+                            num_processes=1, process_id=0, timeout_s=300)
+    try:
+        backend = dist.get_backend()
+        grouped = in_group()
+        torch.cuda.synchronize()
+        decoder_cuda.reset_launches()
+        got = plain_counters(mc.run(make_generator(DIST_SEED, dev), MAIN_ESN0_DB))
+        torch.cuda.synchronize()
+        launches = dict(decoder_cuda.LAUNCHES)
+        times["nccl_world_1"] = [call_ms(mc, DIST_SEED + 1, MAIN_ESN0_DB, dev)
+                                 for _ in range(4)]
+    finally:
+        dist.destroy_process_group()
+    times["no_group"] += [call_ms(mc, DIST_SEED + 1, MAIN_ESN0_DB, dev) for _ in range(2)]
+    out["world_1_nccl"] = dict(
+        backend=backend, config="P1: BG1 A=8424 Z=384 QPSK layered min-sum 12 it",
+        batch=MAIN_BATCH, steps_per_call=MAIN_STEPS, esn0_db=MAIN_ESN0_DB,
+        counters=got, equal_to_no_group=got == want, launches=launches,
+        call_ms=times, seconds=watch.lap())
+    if backend != "nccl" or got != want or not grouped:
+        raise AssertionError(f"world size 1 under NCCL: {out['world_1_nccl']}, no group {want}")
+    expect_launches(launches, "ldpc_layered", MAIN_STEPS)
+
+    # (b)
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ldpc_3gpp_tpu_torch.parallel.launcher",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(rank), "--", sys.executable, "-c", DIST_WORKER, ROOT,
+         str(DIST_SEED), str(DIST_BATCH), str(MAIN_ESN0_DB)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+        for rank in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if any(proc.returncode != 0 for proc in procs):
+        raise AssertionError(f"two ranks under gloo: a rank failed: {logs}")
+    ranks = [json.loads(next(ln for ln in log.splitlines() if ln.startswith("RESULT "))[7:])
+             for log in logs]
+    singles = []
+    for rank in range(2):
+        mc = MonteCarlo(cfg, batch_per_device=DIST_BATCH, device=dev)
+        singles.append(plain_counters(mc.run(make_generator(DIST_SEED, dev, rank=rank),
+                                             MAIN_ESN0_DB)))
+    summed = {k: ([a + b for a, b in zip(singles[0][k], singles[1][k])]
+                  if k == "iteration_hist" else singles[0][k] + singles[1][k])
+              for k in singles[0]}
+    out["two_ranks_gloo"] = dict(
+        config="P1 with 256 blocks per rank", ranks=ranks, single_process_sum=summed,
+        seconds=watch.lap())
+    if (ranks[0]["counters"] != ranks[1]["counters"] or ranks[0]["counters"] != summed
+            or {r["backend"] for r in ranks} != {"gloo"} or ranks[0]["world"] != 2
+            or ranks[0]["blocks_per_run"] != 2 * DIST_BATCH
+            or any(r["launches"]["ldpc_layered"] != 1 for r in ranks)):
+        raise AssertionError(f"two ranks under gloo: {out['two_ranks_gloo']}")
+
+    # (c)
+    records = dryrun_multichip(2, device="cuda", timeout_s=DIST_TIMEOUT_S)
+    torch.cuda.synchronize()
+    decoder_cuda.reset_launches()
+    fn, example_args = entry()
+    counters = [int(t) for t in fn(*example_args)]
+    torch.cuda.synchronize()
+    out["dryrun_multichip"] = dict(
+        counters=records[0]["counters"], launches_by_rank=[r["launches"] for r in records],
+        entry=dict(counters=counters, launches=dict(decoder_cuda.LAUNCHES)),
+        seconds=watch.lap())
+    if (any(r["launches"]["ldpc_flooding"] < 1 or r["launches"]["ldpc_layered"] < 1
+            for r in records)
+            or counters[0] != 8 or decoder_cuda.LAUNCHES["ldpc_flooding"] != 1):
+        raise AssertionError(f"dryrun_multichip / entry: {out['dryrun_multichip']}")
+    return out
+
+
+# The bulk goldens (made by the JAX package's tools/bulk_montecarlo.py on a
+# TPU); each run is sized for about BULK_EXPECTED_ERRORS block errors at the
+# golden's rate, in four calls.
+BULK_GOLDENS = ("bulk_montecarlo.json", "bulk_sp_montecarlo.json",
+                "bulk_lbrm_montecarlo.json", "bulk_cbgti_montecarlo.json")
+BULK_EXPECTED_ERRORS = 150
+BULK_BATCH = 512
+# a bulk run sized for its errors alone may take a fraction of a second,
+# which launch and fetch overheads dominate: its TB/s is read from a second
+# run of at least this many seconds
+BULK_MIN_WINDOW_S = 3.0
+# two campaign entries (golden/pod_campaign.json), each at a scale that
+# keeps it to about 20 s on the card: name -> scale
+CAMPAIGN_ENTRIES = {"bg1_a8424_r13_qpsk": 0.01, "bg2_a100_r12_qpsk": 0.01}
+
+
+def bulk_argv(config, blocks, batch, steps, out):
+    """The bulk tool's arguments for a golden's ``config`` block."""
+    argv = ["--blocks", str(blocks), "--A", str(config["A"]),
+            "--rate", repr(config["A"] / config["G"]), "--bg", str(config["BG"]),
+            "--modulation", config["modulation"], "--esn0", repr(config["esn0_db"]),
+            "--iterations", str(config["iterations"]), "--algorithm", config["algorithm"],
+            "--schedule", config["schedule"], "--batch-per-device", str(batch),
+            "--steps-per-call", str(steps), "--out", out]
+    for flag, key in (("--N-L", "N_L"), ("--I-LBRM", "I_LBRM"), ("--TBS-LBRM", "TBS_LBRM")):
+        if config.get(key) is not None:
+            argv += [flag, str(config[key])]
+    if config.get("CBGTI"):
+        argv += ["--CBGTI", *map(str, config["CBGTI"])]
+    if config.get("rv_sequence"):
+        argv += ["--rv-sequence", *map(str, config["rv_sequence"])]
+    if config.get("cbgti_sequence") is not None:
+        argv += ["--cbgti-seq", json.dumps(config["cbgti_sequence"])]
+    return argv
+
+
+def quiet(main, argv):
+    """``main(argv)`` with its printing kept out of this script's output;
+    returns (its result, {kernel: launches}, seconds)."""
+    import contextlib
+    import io
+
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    torch.cuda.synchronize()
+    decoder_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = main(argv)
+    torch.cuda.synchronize()
+    return result, dict(decoder_cuda.LAUNCHES), time.perf_counter() - t0
+
+
+def throughput_window(main, config, first, batch, steps, path):
+    """TB/s and Mbit/s of the bulk tool at ``config`` over a window of at
+    least ``BULK_MIN_WINDOW_S``: ``first``'s own where its window was as long,
+    else those of a later run at the same call shape sized from the last
+    run's rate (at most three; its counters returned too, for the gate)."""
+    result, launches, runs = first, None, 0
+    while result["elapsed_s"] < BULK_MIN_WINDOW_S and runs < 3:
+        blocks = math.ceil(1.5 * BULK_MIN_WINDOW_S * result["transport_blocks_per_sec"])
+        result, launches, _ = quiet(main, bulk_argv(config, blocks, batch, steps, path))
+        runs += 1
+    rec = dict(blocks=result["blocks"], elapsed_s=result["elapsed_s"],
+               transport_blocks_per_sec=result["transport_blocks_per_sec"],
+               info_mbps=result["info_mbps"], later_runs=runs)
+    if runs:
+        rec.update(block_errors=result["block_errors"], bler=result["bler"],
+                   launches=launches)
+    return rec
+
+
+def phase_campaign(tmp):
+    """The campaign tools on the card, writing into ``tmp``.
+
+    The bulk tool at the four bulk goldens' configurations (read from each
+    golden's ``config`` block): blocks, errors, launches by kernel, the BLER
+    inside ``two_sample_gate`` of the golden's, and TB/s and Mbit/s over a
+    window of at least ``BULK_MIN_WINDOW_S`` (``throughput_window``); at the
+    first configuration also with the sweeps' shallow calls (256 x 1) for
+    the throughput of deep calls.  ``pod_campaign`` at two entries of
+    golden/pod_campaign.json: each calibrated Es/N0 beside the golden's, the
+    BLER gated where the two are equal, V1 launched."""
+    from ldpc_3gpp_tpu_torch.tools import bulk_montecarlo, pod_campaign
+
+    out = {"bulk": [], "campaign": []}
+    for name in BULK_GOLDENS:
+        with open(os.path.join(ROOT, "golden", name)) as f:
+            golden = json.load(f)
+        config = golden["config"]
+        blocks = math.ceil(BULK_EXPECTED_ERRORS / golden["bler"])
+        steps = max(1, math.ceil(blocks / BULK_BATCH / 4))
+        path = os.path.join(tmp, name)
+        result, launches, seconds = quiet(
+            bulk_montecarlo.main, bulk_argv(config, blocks, BULK_BATCH, steps, path))
+        with open(path) as f:
+            if json.load(f) != json.loads(json.dumps(result)):
+                raise AssertionError(f"{name}: the written JSON differs from the result")
+        for key in ("G", "N_cb", "N"):
+            if key in config and result["config"][key] != config[key]:
+                raise AssertionError(f"{name}: {key} {result['config'][key]} != {config[key]}")
+        rec = dict(golden=name, config=result["config"], blocks=result["blocks"],
+                   block_errors=result["block_errors"], bler=result["bler"],
+                   mean_iterations_per_cb=result["mean_iterations_per_cb"],
+                   transport_blocks_per_sec=result["transport_blocks_per_sec"],
+                   info_mbps=result["info_mbps"], elapsed_s=result["elapsed_s"],
+                   call=[BULK_BATCH, steps], launches=launches, seconds=seconds,
+                   golden_tpu_transport_blocks_per_sec=golden["transport_blocks_per_sec"],
+                   golden_tpu_info_mbps=golden["info_mbps"],
+                   gate=two_sample_gate(name, config["esn0_db"], result["blocks"],
+                                        result["block_errors"], golden["blocks"],
+                                        golden["block_errors"]))
+        rec["throughput"] = throughput_window(bulk_montecarlo.main, config, result,
+                                              BULK_BATCH, steps, path)
+        if rec["throughput"]["later_runs"]:
+            rec["throughput"]["gate"] = two_sample_gate(
+                name, config["esn0_db"], rec["throughput"]["blocks"],
+                rec["throughput"]["block_errors"], golden["blocks"], golden["block_errors"])
+        if name == BULK_GOLDENS[0]:
+            path = os.path.join(tmp, "shallow.json")
+            shallow, _, _ = quiet(bulk_montecarlo.main, bulk_argv(config, 20_480, 256, 1, path))
+            rec["shallow_calls_256x1"] = throughput_window(
+                bulk_montecarlo.main, config, shallow, 256, 1, path)
+        out["bulk"].append(rec)
+
+    with open(os.path.join(ROOT, "golden", "pod_campaign.json")) as f:
+        golden = json.load(f)["configs"]
+    v1 = 0
+    for entry, scale in CAMPAIGN_ENTRIES.items():
+        path = os.path.join(tmp, f"campaign_{entry}.json")
+        result, launches, seconds = quiet(
+            pod_campaign.main, ["--only", entry, "--scale", repr(scale), "--out", path])
+        got, want = result["configs"][entry], golden[entry]
+        rec = dict(entry=entry, scale=scale, esn0_db=got["esn0_db"],
+                   golden_esn0_db=want["esn0_db"], blocks=got["blocks"],
+                   block_errors=got["block_errors"], bler=got["bler"],
+                   golden_bler=want["bler"],
+                   transport_blocks_per_sec=got["transport_blocks_per_sec"],
+                   info_mbps=got["info_mbps"], elapsed_s=got["elapsed_s"],
+                   launches=launches, seconds=seconds)
+        if got["esn0_db"] == want["esn0_db"]:
+            rec["gate"] = two_sample_gate(entry, got["esn0_db"], got["blocks"],
+                                          got["block_errors"], want["blocks"],
+                                          want["block_errors"])
+        v1 += launches["ldpc_layered"]
+        out["campaign"].append(rec)
+    if v1 < 1:
+        raise AssertionError(f"the campaign launched no layered kernel: {out['campaign']}")
+    return out
+
+
 VARIANTS = [
     ("V1", LAYERED_SOURCE, TPU_KERNEL),
     ("V1'", LAYERED_SOURCE, TPU_KERNEL + " (:213-214, 243-261, 358-359)"),
@@ -2078,6 +2412,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         entry = phase_entry_points(dev, tmp)
     emit({"phase": "entry_points", **entry, "seconds": watch.lap()})
+
+    emit({"phase": "distributed", "card": card, **phase_distributed(dev),
+          "seconds": watch.lap()})
+    with tempfile.TemporaryDirectory() as tmp:
+        campaign = phase_campaign(tmp)
+    emit({"phase": "campaign", "card": card, **campaign, "seconds": watch.lap()})
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})

@@ -1,15 +1,21 @@
-"""Monte-Carlo engine for one link configuration on one device.
+"""Data-parallel Monte-Carlo engine.
 
-The counterpart of the JAX package's ``parallel/montecarlo.py`` for one
-process and one device: ``run`` simulates ``batch_per_device *
-steps_per_call`` transport blocks and returns host-side integer counters.
-The counters are summed on the device in int64 and fetched once per ``run``
-(once per window for ``run_pipelined``): one host synchronisation per call,
-however many steps it spans.
+The counterpart of the JAX package's ``parallel/montecarlo.py``.  The
+reference's parallelism story is "run N MATLAB instances with different seeds
+and merge text files by hand" (plot_BLER_vs_SNR.m:23-27).  Here every rank of
+a ``torch.distributed`` process group (one process per GPU, the counterpart
+of a device of the JAX mesh) simulates its own sub-batch from its own stream
+(``utils.rng.make_generator`` folds the rank into the seed), and the
+counters are summed over the group: ``run`` simulates ``batch_per_device *
+world_size * steps_per_call`` transport blocks and returns the same host-side
+integer counters on every rank.
 
-The multi-device half of the JAX class (the mesh, ``shard_map``, ``psum`` and
-the per-device key fold) is still to port with ``torch.distributed``
-(ROADMAP.md queue A.6).
+The counters are summed on the device in int64, all-reduced (SUM) over the
+group and fetched once per ``run`` (once per window for ``run_pipelined``):
+one host synchronisation per call, however many steps it spans.  Without a
+process group (or with a group of one) the all-reduce changes nothing and
+the counters are those of one process.  Ranks start through ``torchrun`` or
+``parallel/launcher.py``.
 """
 from __future__ import annotations
 
@@ -19,9 +25,11 @@ from typing import Dict, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.chain import ChainConfig, _efficient_batch, simulate_batch
 from ..utils.device import resolve_device
+from .launcher import in_group, world_size
 
 
 @dataclasses.dataclass
@@ -29,12 +37,14 @@ class MonteCarlo:
     """Monte-Carlo runner for one link configuration.
 
     ``run(generator, esn0_db)`` simulates ``blocks_per_run`` transport blocks
-    with bits and noise drawn from ``generator`` (a ``torch.Generator`` on
-    ``device``; see ``utils.rng.make_generator``).
+    over the process group, each rank's with bits and noise drawn from its
+    ``generator`` (a ``torch.Generator`` on ``device``; see
+    ``utils.rng.make_generator``, which seeds each rank's stream apart), and
+    returns the counters summed over the group.
     """
 
     cfg: ChainConfig
-    #: requested blocks per step.  NOTE: values > 64 that are not multiples
+    #: requested blocks per rank and step.  NOTE: values > 64 that are not multiples
     #: of 128 are rounded UP to the next multiple of 128 at construction, as
     #: in the JAX package, so that both simulate the same number of blocks per
     #: call — read ``batch_per_device`` after construction (or
@@ -42,7 +52,9 @@ class MonteCarlo:
     #: when rounding changes the number.
     batch_per_device: int = 128
     steps_per_call: int = 1  # simulation steps per call; each draws fresh blocks/noise
-    #: runs on a CUDA device unless the caller asks for the CPU
+    #: runs on a CUDA device (the rank's own after ``init_distributed``)
+    #: unless the caller asks for the CPU.  Several ranks may share one GPU
+    #: only under gloo: NCCL refuses two ranks on one device.
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
@@ -60,8 +72,14 @@ class MonteCarlo:
             self.batch_per_device = eff
 
     @property
+    def world_size(self) -> int:
+        """Ranks the counters are summed over: the default group's (the JAX
+        class's ``mesh``), 1 without one."""
+        return world_size()
+
+    @property
     def blocks_per_run(self) -> int:
-        return self.batch_per_device * self.steps_per_call
+        return self.batch_per_device * self.world_size * self.steps_per_call
 
     def _accumulate(self, generator: torch.Generator, esn0_db: float, calls: int):
         """Counters of ``calls * steps_per_call`` steps, summed on the device:
@@ -80,8 +98,11 @@ class MonteCarlo:
             ])
         return acc
 
-    @staticmethod
-    def _fetch(acc: torch.Tensor) -> Dict[str, Union[int, np.ndarray]]:
+    def _fetch(self, acc: torch.Tensor) -> Dict[str, Union[int, np.ndarray]]:
+        """Sum ``acc`` over the group (in int64: ``bit_errors`` overflows
+        int32 at BLER ~ 1 within one large call) and copy it to the host."""
+        if in_group():
+            dist.all_reduce(acc, op=dist.ReduceOp.SUM)
         host = acc.cpu().numpy()  # the call's one host synchronisation
         return {
             "blocks": int(host[0]),
@@ -93,8 +114,9 @@ class MonteCarlo:
 
     def run(self, generator: torch.Generator, esn0_db: float
             ) -> Dict[str, Union[int, np.ndarray]]:
-        """Counters of one call; all values are Python ints except
-        'iteration_hist', which is an (iterations+1,) int64 ndarray."""
+        """Counters of one call summed over the group; all values are Python
+        ints except 'iteration_hist', which is an (iterations+1,) int64
+        ndarray.  Every rank must call it: it all-reduces."""
         return self._fetch(self._accumulate(generator, esn0_db, 1))
 
     def run_pipelined(self, generator: torch.Generator, esn0_db: float, calls: int

@@ -16,10 +16,19 @@ downstream plotting/aggregation workflow carries over.  File names, line
 formats, resume and repair are byte for byte those of the JAX package's
 ``parallel/sweep.py``; one ``torch.Generator`` per curve, seeded from
 ``seed``, takes the place of its split keys.
+
+Under ``torch.distributed`` (``parallel/launcher.py``) every rank runs the
+same sweep.  The loops read only counters that ``MonteCarlo`` has summed
+over the ranks, so every rank takes the same decisions and makes the same
+all-reduces; the one decision taken from host state, the resume scan of the
+results file, is made on rank 0 and broadcast.  Only rank 0 opens and writes
+results files, prints and plots.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import os
 from typing import Dict, List, Sequence, Tuple
 
@@ -31,6 +40,7 @@ from ..ops.modulation import Q_M
 from ..spec.params import LDPCParams
 from ..spec.tables import UnsupportedParameters
 from ..utils.rng import make_generator
+from .launcher import decided_on_primary, is_primary
 from .montecarlo import MonteCarlo
 
 
@@ -94,6 +104,23 @@ def _scan_resume_file(fname, parse) -> Dict:
         with open(fname, "w") as fid:
             fid.writelines(keep)
     return done
+
+
+def _results_file(fname: str, mode: str):
+    """The results file, opened on rank 0; elsewhere a sink that is never
+    read: one file per sweep, written by one rank."""
+    if is_primary():
+        return open(fname, mode)
+    return contextlib.nullcontext(io.StringIO())
+
+
+def _resume_points(fname: str, resume: bool, parse) -> Dict:
+    """The points already in ``fname`` (repaired in place), read on rank 0
+    and broadcast; {} without ``resume``."""
+    if not resume:
+        return {}
+    return decided_on_primary(
+        lambda: _scan_resume_file(fname, parse) if os.path.exists(fname) else {})
 
 
 @dataclasses.dataclass
@@ -255,9 +282,13 @@ def bler_vs_snr(
     per-point figure refresh, plot_BLER_vs_SNR.m:157-160).
 
     Runs on a CUDA device unless ``device='cpu'`` is passed; raises if CUDA
-    is asked for and absent.
+    is asked for and absent.  Under ``torch.distributed`` every rank calls
+    it and gets the same points; rank 0 writes, prints and plots.
     """
-    os.makedirs(results_dir, exist_ok=True)
+    primary = is_primary()
+    verbose, live_plot = verbose and primary, live_plot and primary
+    if primary:
+        os.makedirs(results_dir, exist_ok=True)
     out: Dict[tuple, List[SweepPoint]] = {}
     for bg_i in bg:
         for r_i in rate:
@@ -282,15 +313,12 @@ def bler_vs_snr(
                     f"BLER_vs_SNR_{a_i}_{r_i:g}_{bg_i}_{modulation}_"
                     f"{iterations}_{target_block_errors}_{esn0_start:g}_{seed}.txt",
                 )
-                done_points = {}
-                if resume and os.path.exists(fname):
-                    done_points = _scan_resume_file(
-                        fname, lambda p: (round(float(p[0]), 6), float(p[1]))
-                    )
+                done_points = _resume_points(
+                    fname, resume, lambda p: (round(float(p[0]), 6), float(p[1])))
                 generator = make_generator(seed, device)
                 points: List[SweepPoint] = []
                 esn0, bler, found_start = esn0_start, 1.0, False
-                with open(fname, "a" if resume else "w") as fid:
+                with _results_file(fname, "a" if resume else "w") as fid:
                     while bler > target_bler:
                         if round(esn0, 6) in done_points:
                             bler = done_points[round(esn0, 6)]
@@ -383,9 +411,13 @@ def snr_vs_a(
     every A (plot_SNR_vs_A.m:177-184).
 
     Runs on a CUDA device unless ``device='cpu'`` is passed; raises if CUDA
-    is asked for and absent.
+    is asked for and absent.  Under ``torch.distributed`` every rank calls
+    it and gets the same curves; rank 0 writes, prints and plots.
     """
-    os.makedirs(results_dir, exist_ok=True)
+    primary = is_primary()
+    verbose, live_plot = verbose and primary, live_plot and primary
+    if primary:
+        os.makedirs(results_dir, exist_ok=True)
     out: Dict[float, List[Tuple[int, float]]] = {}
     for r_i in rate:
         fname = os.path.join(
@@ -393,13 +425,10 @@ def snr_vs_a(
             f"SNR_vs_A_{target_bler:g}_{r_i:g}_{bg}_{modulation}_"
             f"{iterations}_{target_block_errors}_{seed}.txt",
         )
-        done_as: Dict[int, float] = {}
-        if resume and os.path.exists(fname):
-            done_as = _scan_resume_file(
-                fname, lambda p: (int(p[0]), float(p[1]))
-            )
+        done_as: Dict[int, float] = _resume_points(
+            fname, resume, lambda p: (int(p[0]), float(p[1])))
         curve: List[Tuple[int, float]] = []
-        with open(fname, "a" if resume else "w") as fid:
+        with _results_file(fname, "a" if resume else "w") as fid:
             for a_i in A:
                 if a_i in done_as:
                     curve.append((a_i, done_as[a_i]))

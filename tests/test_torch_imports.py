@@ -10,11 +10,14 @@ import pytest
 import torch
 
 import ldpc_3gpp_tpu_torch
-from ldpc_3gpp_tpu_torch import api, cli
+from ldpc_3gpp_tpu_torch import api, cli, entry
 from ldpc_3gpp_tpu_torch.models import chain as t_chain
 from ldpc_3gpp_tpu_torch.models import decoder as t_dec
+from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+from ldpc_3gpp_tpu_torch.tools import bulk_montecarlo, lifting_sweep, pod_campaign
 from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+from test_torch_distributed import group_of_one
 
 torch.set_num_threads(1)
 
@@ -30,7 +33,8 @@ EXPECTED_MODULES = {
     "utils.rng", "utils.device", "utils.golden", "utils.plotting",
     "utils.profiling", "utils.fingerprint", "api", "cli",
     "parallel.montecarlo", "parallel.sweep", "tools.op_rates", "tools.small_z",
-    "tools.flooding_shapes",
+    "tools.flooding_shapes", "parallel.launcher", "entry", "tools.bulk_montecarlo",
+    "tools.pod_campaign", "tools.lifting_sweep",
 }
 
 
@@ -121,6 +125,23 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv + ([str(tmp_path)] if argv[-1] == "--results-dir" else []))
+    # the flagship entry, MonteCarlo in a process group, the campaign tools
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(2)
+    with group_of_one(tmp_path):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MonteCarlo(cfg, batch_per_device=8)
+    out = ["--out", str(tmp_path / "tool.json")]
+    for main, argv in (
+        (bulk_montecarlo.main, ["--blocks", "8", "--batch-per-device", "8"]),
+        (pod_campaign.main, ["--only", "bg2_a100_r12_qpsk", "--scale", "1e-6"]),
+        (lifting_sweep.main, ["--quick", "--batch", "2"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv + out)
+    assert not (tmp_path / "tool.json").exists()
 
 
 def test_chip_smoke_fails_without_a_gpu():
