@@ -78,10 +78,12 @@ def main(argv: Optional[list] = None) -> dict:
 
 def _run(args) -> dict:
     from ..models.chain import ChainConfig
+    from ..ops import decoder_cuda
     from ..ops.modulation import Q_M
     from ..parallel.launcher import is_primary
     from ..parallel.montecarlo import MonteCarlo
     from ..spec.params import LDPCParams
+    from ..utils.artifacts import card_label
     from ..utils.fingerprint import semantics_fingerprint
     from ..utils.rng import make_generator
 
@@ -123,7 +125,7 @@ def _run(args) -> dict:
     result = {
         "description": "Bulk Monte-Carlo (BASELINE config #5 at one node's "
         f"scale): fixed-SNR {args.modulation} link, counters summed over "
-        "every rank (PyTorch/CUDA port).",
+        f"every rank (PyTorch/CUDA port), rank 0 on {card_label(mc.device)}.",
         # decoder-semantics stamp of the port's sources
         "semantics": semantics_fingerprint(),
         "config": {
@@ -149,6 +151,8 @@ def _run(args) -> dict:
     }
     if primary:
         print(json.dumps(result, indent=1))
+        # this process's decode launches (a caller in another process reads them)
+        print(json.dumps({"launches": dict(decoder_cuda.LAUNCHES)}), flush=True)
         if os.path.dirname(args.out):
             os.makedirs(os.path.dirname(args.out), exist_ok=True)
         with open(args.out, "w") as f:

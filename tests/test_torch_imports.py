@@ -15,7 +15,10 @@ from ldpc_3gpp_tpu_torch.models import chain as t_chain
 from ldpc_3gpp_tpu_torch.models import decoder as t_dec
 from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
-from ldpc_3gpp_tpu_torch.tools import bulk_montecarlo, lifting_sweep, pod_campaign
+from ldpc_3gpp_tpu_torch.tools import (
+    bulk_montecarlo, demod_compare, density_evolution, lifting_sweep, pod_campaign,
+    regen_goldens,
+)
 from ldpc_3gpp_tpu_torch.utils.rng import make_generator
 from test_torch_distributed import group_of_one
 
@@ -34,7 +37,9 @@ EXPECTED_MODULES = {
     "utils.profiling", "utils.fingerprint", "api", "cli",
     "parallel.montecarlo", "parallel.sweep", "tools.op_rates", "tools.small_z",
     "tools.flooding_shapes", "parallel.launcher", "entry", "tools.bulk_montecarlo",
-    "tools.pod_campaign", "tools.lifting_sweep",
+    "tools.pod_campaign", "tools.lifting_sweep", "tools.na_bound",
+    "tools.density_evolution", "tools.demod_compare", "tools.regen_goldens",
+    "tools.regen_plots", "tools.plot_snr_vs_a_surface", "utils.artifacts",
 }
 
 
@@ -142,6 +147,16 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv + out)
     assert not (tmp_path / "tool.json").exists()
+    # the golden pipeline's tools (na_bound and the two plot tools touch no device)
+    for main, argv in (
+        (density_evolution.main, ["--configs", "reg36", "--samples", "100"] + out),
+        (demod_compare.main, out),
+        (regen_goldens.main, ["config1", "--out-dir", str(tmp_path / "golden_out")]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    assert not (tmp_path / "tool.json").exists()
+    assert not (tmp_path / "golden_out").exists()
 
 
 def test_chip_smoke_fails_without_a_gpu():
