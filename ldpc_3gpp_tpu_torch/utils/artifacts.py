@@ -18,15 +18,18 @@ import torch
 
 #: the port's default artifact directory
 DEFAULT_DIR = os.path.join("results", "torch", "golden")
+#: the JAX package's stamped artifacts, the one directory the port never writes
+JAX_GOLDEN_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "golden")
 
 
 def check_out_path(path: str) -> str:
-    """``path``, or ValueError where it lies under a directory named
-    ``golden`` (the JAX package's stamped artifacts)."""
-    parts = os.path.realpath(os.path.abspath(path)).split(os.sep)
-    if "golden" in parts:
+    """``path``, or ValueError where it lies under the repository's
+    ``golden/`` (the JAX package's stamped artifacts), links resolved."""
+    real, guard = os.path.realpath(path), os.path.realpath(JAX_GOLDEN_DIR)
+    if os.path.commonpath([real, guard]) == guard:
         raise ValueError(
-            f"{path}: refusing to write under golden/, which holds the JAX "
+            f"{path}: refusing to write under {JAX_GOLDEN_DIR}, which holds the JAX "
             f"package's artifacts; write under {DEFAULT_DIR} or golden_torch/")
     return path
 
