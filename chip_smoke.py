@@ -48,8 +48,16 @@ the golden pipeline (``goldens``): density evolution against the published
 (3,6) threshold and the golden BG1 thresholds, BLER points of the headline,
 config2 (HARQ IR) and demod protocols inside their two-sample bounds, one
 surface row through the ``surface`` stage within 0.15 dB of its golden and
-above the normal-approximation bound, and whether ``golden_torch/``'s stamps
-are current.
+above the normal-approximation bound, config #1's stage through the plain
+'fast' decoder and through the kernel equal, and whether ``golden_torch/``'s
+stamps are current.  Then the benchmark (``bench``): the headline of the
+port's ``bench.py`` and every row of its sweep at a cut protocol (at most 2
+block errors at the headline, both scalar baseline rates; each row's mean
+iterations within 15 % of both ``bench_sweep`` goldens and its BLER inside
+the two-sample bound of the JAX row), the roofline's three rows
+(``tools/roofline.py``, which holds ``kernel_bound`` and ``measure_variant``
+for the ``kernels`` line) and ``tools/profile_sim.py``'s busy and idle share
+at P1, each part with its launches counted.
 
 It holds the packed kernels (several small-Z codewords per block) equal to the
 one-codeword kernels and the plain versions, the op-rate microbenchmark equal
@@ -78,26 +86,14 @@ import time
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+from ldpc_3gpp_tpu_torch.tools.profile_sim import profile_steps
+from ldpc_3gpp_tpu_torch.tools.roofline import (
+    PEAK_BYTES_PER_S, PEAK_OPS_PER_S, measure_variant, measured_rate, noisy_d_tilde,
+    rate_shape, require_equal,
+)
+from ldpc_3gpp_tpu_torch.utils.profiling import time_ms
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# the float32 rate outside the tensor cores, which the decoder's
-# integer/float32 lane operations are counted against.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-# Operations the algorithm does per edge and lane in one update sweep:
-# parity xor, subtract, magnitude and, sign xor, tournament min/max/min,
-# compare, select, own-sign and/xor, add (the two per-row scalings are
-# amortised over the row's edges).
-OPS_PER_EDGE_LANE = 12
-OPS_PER_EDGE_LANE_SYNDROME = 1
-# Sum-product: one phi is 27 single operations (clamp, halve, the compares
-# and selects of tanh and log, exponent split, multiplies, adds, one divide,
-# negate) and 19 fused multiply-adds counted as two: 65.  Per edge and lane
-# a sweep does two phi and 13 more (parity xor, subtract, abs, sign test and
-# mask, the sum T, T - phi, max, sign parity and flip, add).
-OPS_PER_PHI = 65
-OPS_PER_EDGE_LANE_SUM_PRODUCT = 2 * OPS_PER_PHI + 13
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 FLAGSHIP = dict(BG=1, A=8424, G=25272, Q_m=2)
 ITERATIONS = 12
@@ -171,56 +167,6 @@ CLUSTER_SP_ITERATIONS = 4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn`` by CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def noisy_d_tilde(params, modulation, esn0_db, n, seed, dev):
-    """(n, C, N) circular-buffer LLRs of numpy-seeded blocks through the
-    port's own encode / demodulate chain at ``esn0_db``; also the bits."""
-    from ldpc_3gpp_tpu_torch.models.decoder import split_rate_matched_symbols
-    from ldpc_3gpp_tpu_torch.models.encoder import encode_to_symbols
-    from ldpc_3gpp_tpu_torch.ops.channel import esn0_to_variance
-
-    rng = np.random.default_rng(seed)
-    a = torch.from_numpy(rng.integers(0, 2, (n, params.A)).astype(np.int8)).to(dev)
-    noise_var = esn0_to_variance(esn0_db, device=dev)
-    tx = encode_to_symbols(params, a, modulation)
-    std = math.sqrt(float(noise_var) / 2.0)
-    noise = (rng.standard_normal(tx.shape) + 1j * rng.standard_normal(tx.shape)) * std
-    rx = tx + torch.from_numpy(noise.astype(np.complex64)).to(dev)
-    return split_rate_matched_symbols(params, rx, modulation, noise_var), a
-
-
-def require_equal(got, want, what) -> int:
-    """Max abs difference over bits, parity flags and iteration counts of two
-    decode results; raises unless it is 0 (the stated tolerance)."""
-    diff = 0
-    for name in ("bits", "parity_ok", "iterations"):
-        g, w = getattr(got, name), getattr(want, name)
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-        d = int((g.to(torch.int32) - w.to(torch.int32)).abs().max()) if g.numel() else 0
-        diff = max(diff, d)
-    if diff != 0:
-        differing = int((got.bits != want.bits).any(dim=-1).sum())
-        raise AssertionError(
-            f"kernel differs from plain version: {what}: max abs diff {diff}, "
-            f"{differing} codewords with other bits")
-    return diff
 
 
 def compare_case(params, llr, **kw) -> int:
@@ -1117,175 +1063,6 @@ def phase_variant_steps(generator, dev):
     return out
 
 
-def kernel_bound(params, res, budget, n_in_cols, out_cols, *, schedule="layered",
-                 algorithm="min-sum", early_termination=True, scratch_bytes=0,
-                 shape=None):
-    """Least time (ms) the card could take for this run's decodes.
-
-    Bytes: each input LLR read once, each output bit and flag written once.
-    Operations: per edge and lane, OPS_PER_EDGE_LANE (min-sum family) or
-    OPS_PER_EDGE_LANE_SUM_PRODUCT for every update sweep this run's data
-    needed, and one for every syndrome pass.  Layered with early
-    termination: a codeword that passed at sweep ``it`` ran ``it + 1``
-    update sweeps, one that never passed the budget and one syndrome pass.
-    Flooding with early termination: ``it`` update sweeps and ``it + 1``
-    syndrome passes (the budget and budget + 1 if it never passed).  A run
-    to budget: the budget and one syndrome pass.
-
-    Beside the bound, the work of the kernel's own design for
-    ``measured_rate``; ``shape`` is ``decoder_cuda.launch_shape``'s record.
-    Layered: a codeword's ``scratch_bytes`` (its share of
-    ``decoder_cuda.scratch_shape``: the min-sum family's compressed words,
-    nr*Z*12 B, or 8 with bfloat16 messages; else E*Z messages) written once
-    per update sweep and read once per update sweep after the first.
-    Flooding: a message phase per update sweep plus the one whose vote stops
-    the codeword (its messages are discarded), a parity-only pass where the
-    budget is reached; messages written by the message phase and read by the
-    column phase and by the next message phase, in shared memory (the
-    block's or the cluster's), or in the packed kernel's scratch (layout
-    0)."""
-    n = res.iterations.numel()
-    Z, E = params.Z_c, len(params.edges[0])
-    used = res.iterations.to(torch.int64).reshape(-1)
-    passed = res.parity_ok.reshape(-1)
-    full = torch.full_like(used, budget)
-    if not early_termination:
-        updates, syndromes = full, torch.ones_like(used)
-    elif schedule == "layered":
-        early = passed & (used < budget)
-        updates = torch.where(early, used + 1, full)
-        syndromes = (~early).to(torch.int64)
-    else:
-        updates, syndromes = used, used + 1
-    total_updates, total_syndromes = int(updates.sum()), int(syndromes.sum())
-    per_update = (OPS_PER_EDGE_LANE_SUM_PRODUCT if algorithm == "sum-product"
-                  else OPS_PER_EDGE_LANE)
-    nbytes = n * (n_in_cols * Z * 4 + out_cols * Z + 8)
-    ops = E * Z * (per_update * total_updates
-                   + OPS_PER_EDGE_LANE_SYNDROME * total_syndromes)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    reads = updates - (updates > 0).to(torch.int64)  # sweep 0 reads no message
-    if schedule == "flooding" and shape is not None:
-        # message phases: the updates, and the discarded one of a codeword
-        # whose vote passed before the budget
-        stopped = passed & (used < budget) if early_termination else torch.zeros_like(passed)
-        phases = int((updates + stopped.to(torch.int64)).sum())
-        parity_only = int((~stopped).sum())
-        # per edge and lane, all in shared memory (a cluster's included) but
-        # for the packed kernel's scratch form: a rotated total read per
-        # phase, the message read (after sweep 0) and write of a message
-        # phase, and the column phase's message read
-        messages = E * Z * (phases + int(reads.sum()) + total_updates)
-        in_scratch = shape["layout"] == 0
-        shared = E * Z * (phases + parity_only) + (0 if in_scratch else messages)
-        work = dict(update_edge_lanes=E * Z * phases,
-                    syndrome_edge_lanes=E * Z * parity_only,
-                    shared_accesses=shared, scratch_bytes=4 * messages if in_scratch else 0)
-    else:
-        work = dict(update_edge_lanes=E * Z * total_updates,
-                    syndrome_edge_lanes=E * Z * total_syndromes,
-                    # an update reads and writes a total, a syndrome pass reads
-                    shared_accesses=E * Z * (2 * total_updates + total_syndromes),
-                    scratch_bytes=scratch_bytes * int((updates + reads).sum()))
-    return dict(
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes_ms=t_bytes, operations_ms=t_ops,
-        mean_sweeps=total_updates / n,
-        # the device-memory traffic of this design, for PERF.md; not part of
-        # the bound
-        scratch_traffic_ms=work["scratch_bytes"] / PEAK_BYTES_PER_S * 1e3,
-        **work,
-    )
-
-
-# The operations of one edge and lane in an update sweep by the class of the
-# op-rate microbenchmark they fall in (they add up to OPS_PER_EDGE_LANE and
-# OPS_PER_EDGE_LANE_SUM_PRODUCT; phi's arithmetic counts as multiply/add).
-OP_MIX = {
-    "min-sum": {"bitops": 5, "addmul": 2, "minmax": 3, "select": 2},
-    "sum-product": {"addmul": 134, "bitops": 5, "select": 4},
-}
-
-
-def measured_rate(work, rates, algorithm):
-    """Time (ms) the same work takes at the rates the op-rate microbenchmark
-    measured in this kernel's block shape: the arithmetic by class (classes
-    share the instruction slots, so their times add), the shared-memory
-    accesses of the design (``kernel_bound``; a rotation is one rotated read
-    and one write, two accesses), and the scratch traffic at the scratch
-    stream's rate.  The three overlap at best, so ``measured_rate_ms`` is the
-    largest; their sum is given too."""
-    mix = OP_MIX["sum-product" if algorithm == "sum-product" else "min-sum"]
-    alu = sum(work["update_edge_lanes"] * count / rates[c]["operations_per_s"]
-              for c, count in mix.items())
-    alu += work["syndrome_edge_lanes"] / rates["bitops"]["operations_per_s"]
-    shared = 0.5 * work["shared_accesses"] / rates["rotate"]["operations_per_s"]
-    scratch = work["scratch_bytes"] / rates["scratch"]["bytes_per_s"]
-    parts = dict(arithmetic_ms=alu * 1e3, shared_memory_ms=shared * 1e3,
-                 scratch_ms=scratch * 1e3)
-    return dict(measured_rate_ms=max(parts.values()),
-                measured_rate_sum_ms=sum(parts.values()), **parts)
-
-
-def scratch_per_codeword(params, n, P, kw) -> float:
-    """Bytes of message scratch per codeword that ``decode`` gives a launch
-    of ``n`` codewords, ``P`` per block, with the arguments ``kw``."""
-    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
-
-    spec = decoder_cuda.scratch_shape(
-        params, n, kw.get("schedule", "layered"), kw.get("algorithm", "min-sum"),
-        kw.get("message_dtype", "float32"), P)
-    if spec is None:
-        return 0
-    shape, dtype = spec
-    return math.prod(shape) * torch.empty((), dtype=dtype).element_size() / (shape[0] * P)
-
-
-def measure_variant(params, llr, reps, plain=True, **kw):
-    """One kernel variant at its path's shape: time by CUDA events, the
-    plain version's time (one run) and equality with it (with ``plain``),
-    the bound and the launch shape."""
-    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
-
-    res = decoder_cuda.decode(params, llr, **kw)
-    ms = time_ms(lambda: decoder_cuda.decode(params, llr, **kw), reps=reps)
-    holder = {}
-
-    def run_plain():
-        holder["res"] = decoder_cuda.decode_plain(params, llr, **kw)
-
-    plain_ms = diff = None
-    if plain:
-        plain_ms = time_ms(run_plain, reps=1, warmup=0)
-        diff = require_equal(res, holder["res"], kw)
-    n = res.iterations.numel()
-    schedule = kw.get("schedule", "layered")
-    launch = decoder_cuda.launch_shape(
-        params, n, schedule, kw.get("codewords_per_block", 0),
-        torch.cuda.get_device_properties(llr.device).multi_processor_count)
-    nc = params.num_cols
-    bound = kernel_bound(
-        params, res, kw["iterations"],
-        nc - 2 if kw.get("channel_format") == "d" else nc,
-        params.num_sys_cols if kw.get("output_format") == "sys" else nc,
-        schedule=kw.get("schedule", "layered"),
-        algorithm=kw.get("algorithm", "min-sum"),
-        early_termination=kw.get("early_termination", True),
-        scratch_bytes=scratch_per_codeword(params, n, launch["codewords_per_block"], kw),
-        shape=launch,
-    )
-    shape = dict(
-        Z=params.Z_c, E=len(params.edges[0]), **launch,
-        blocks_per_sm=decoder_cuda.blocks_per_sm(
-            params, schedule, kw.get("algorithm", "min-sum"),
-            kw.get("message_dtype", "float32"), launch["codewords_per_block"], n))
-    return dict(ms=ms, us_per_codeword=ms * 1e3 / n, plain_ms=plain_ms,
-                max_abs_diff=diff, codewords=n, algorithm=kw.get("algorithm", "min-sum"),
-                **shape, **bound)
-
-
 def phase_op_rates(dev, times):
     """K2.  Every class equals its plain version at a small loop count
     (tolerance 0: the number of values whose bits differ must be 0) in three
@@ -1318,14 +1095,7 @@ def phase_op_rates(dev, times):
     op_rates.reset_launches()
     by_shape = {}
     for variant, m in times.items():
-        # a packed block's lanes form one run of P*Z, as one codeword's Z do;
-        # a one-codeword flooding block wider than K2's MAX_THREADS is taken
-        # as blocks of MAX_THREADS with as many threads per SM
-        threads, per_sm = m["threads"], m["blocks_per_sm"]
-        if threads > op_rates.MAX_THREADS:
-            threads, per_sm = (op_rates.MAX_THREADS,
-                               max(1, threads * per_sm // op_rates.MAX_THREADS))
-        key = (threads, m["Z"] * m["codewords_per_block"], m["E"], per_sm)
+        key = rate_shape(m)
         if key not in by_shape:
             by_shape[key] = op_rates.rates(*key, dev)
         m.update(measured_rate(m, by_shape[key], m["algorithm"]))
@@ -1366,43 +1136,6 @@ def phase_op_rates(dev, times):
          **{op: (r["operations_per_s"] or r["bytes_per_s"]) for op, r in v.items()}}
         for k, v in by_shape.items()]
     return record, rates
-
-
-def profile_steps(step, n, step_ms):
-    """Device time per step by kernel name, from ``torch.profiler`` over
-    ``n`` steps, and its share of the unprofiled step time ``step_ms``.
-    Device numbers are None where the profiler shows no device time (then
-    they are not measured)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host-side operator rows repeat their kernels' time
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / n, ev.count / n, ev.key))
-    busy_ms = sum(r[0] for r in rows)
-    if busy_ms == 0:
-        return {"steps": n, "device_busy_ms_per_step": None,
-                "device_busy_share": None, "top": None}
-    rows.sort(reverse=True)
-    return {
-        "steps": n, "device_busy_ms_per_step": busy_ms,
-        "device_busy_share": busy_ms / step_ms,
-        "device_idle_share": 1.0 - busy_ms / step_ms,
-        "kernels_per_step": sum(r[1] for r in rows),
-        "top": [{"name": k[:60], "ms_per_step": ms, "per_step": c}
-                for ms, c, k in rows[:6]],
-    }
 
 
 def step_times(cfg, generator, esn0_db, dev):
@@ -2271,6 +2004,10 @@ DEMOD_JAX_TODAY = {("exact", 10.5): (2048, 1278), ("exact", 10.75): (2048, 232),
 # golden's lowest required Es/N0 at 1e-1, on the protocol's 0.1 dB grid
 GOLDENS_SURFACE_ROW = ("min-sum", "0.666667", 2 / 3)
 GOLDENS_SURFACE_LEAD_DB = 0.4
+# the config1 stage runs the flooding kernel (backend 'auto'), the JAX stage
+# its plain decoder: one call of the stage's protocol at this point of its
+# sweep through both, counters equal
+GOLDENS_CONFIG1_ESN0_DB = 2.5
 
 
 def golden_point_config(artifact, curve, protocol):
@@ -2311,8 +2048,11 @@ def phase_goldens(dev, tmp):
     ``DEMOD_JAX_TODAY``: its golden predates the reversed layered row order).  The surface row ``GOLDENS_SURFACE_ROW``
     through the ``surface`` stage: every required Es/N0 within
     ``SNR_VS_A_TOLERANCE_DB`` of golden/SNR_vs_A_surface.json, its gap to the
-    normal-approximation bound positive.  The plots where matplotlib is
-    installed; whether the committed artifacts' stamps are current."""
+    normal-approximation bound positive.  One call of the config1 stage's
+    protocol through the plain 'fast' decoder and through the stage's
+    backend (the flooding kernel): the same counters.  The plots where
+    matplotlib is installed; whether the committed artifacts' stamps are
+    current."""
     import importlib.util
 
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
@@ -2378,6 +2118,31 @@ def phase_goldens(dev, tmp):
     out["points"] = points
     out["points_seconds"] = watch.lap()
 
+    # config #1's stage on the kernel: one call of its protocol through the
+    # plain 'fast' decoder and through 'auto' on the same stream
+    from ldpc_3gpp_tpu_torch.parallel.sweep import _make_config
+
+    c1 = regen_goldens.CONFIG1
+    counters = {}
+    for backend in ("fast", regen_goldens.CONFIG1["backend"]):
+        cfg = _make_config(c1["A"], c1["rate"], c1["bg"], c1["modulation"], (0,),
+                           c1["iterations"], c1["algorithm"], backend=backend,
+                           schedule=c1["schedule"])
+        mc = MonteCarlo(cfg, batch_per_device=c1["batch_per_device"],
+                        steps_per_call=c1["steps_per_call"], device=dev)
+        before = decoder_cuda.LAUNCHES["ldpc_flooding"]
+        c = mc.run(make_generator(c1["seed"], dev), GOLDENS_CONFIG1_ESN0_DB)
+        counters[backend] = dict(plain_counters(c),
+                                 flooding_launches=decoder_cuda.LAUNCHES["ldpc_flooding"] - before)
+    fast, auto = counters["fast"], counters[c1["backend"]]
+    out["config1_fast_vs_auto"] = dict(esn0_db=GOLDENS_CONFIG1_ESN0_DB, **counters,
+                                       seconds=watch.lap())
+    if ({k: v for k, v in fast.items() if k != "flooding_launches"}
+            != {k: v for k, v in auto.items() if k != "flooding_launches"}
+            or fast["flooding_launches"] != 0 or auto["flooding_launches"] < 1
+            or c1["backend"] != "auto"):
+        raise AssertionError(f"config1 on the kernel differs from 'fast': {counters}")
+
     # one surface row through the surface stage
     algorithm, r_key, rate = GOLDENS_SURFACE_ROW
     g_surface = golden("SNR_vs_A_surface.json")
@@ -2437,6 +2202,112 @@ def phase_goldens(dev, tmp):
     if (out["launches"]["ldpc_layered"] < 1 or out["launches"]["ldpc_flooding"] < 1
             or out["cluster_launches"] < 1):
         raise AssertionError(f"the golden pipeline missed a kernel: {out['launches']}")
+    return out
+
+
+# The bench phase: the headline and every sweep row of the port's bench.py at
+# a cut protocol (listed in the phase's line), the roofline's rows, and
+# profile_sim's step profile at P1.  Mean iterations per TB within 15 % of
+# both bench_sweep goldens (the JAX gate, tests/test_tpu_kernel.py:323-328),
+# BLER inside the two-sample bound of the JAX row; TB/s not gated.
+BENCH_HEADLINE_CUT = dict(trials=2, reps=1, scalar_seconds=0.5)
+BENCH_SWEEP_CUT = dict(steps=16, trials=1, reps=1)
+BENCH_ITERATION_TOLERANCE = 0.15
+BENCH_ROOFLINE_REPS = 10
+
+
+def phase_bench(dev, card):
+    """The port's benchmark module and its measurement tools on the card,
+    each part with the launch counts set to 0 before it and read after."""
+    from ldpc_3gpp_tpu_torch import bench
+    from ldpc_3gpp_tpu_torch.models.chain import simulate_batch
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.tools import op_rates, profile_sim, roofline
+    from ldpc_3gpp_tpu_torch.utils.rng import make_generator
+
+    def golden_rows(root):
+        with open(os.path.join(ROOT, root, "bench_sweep.json")) as f:
+            return {r["name"]: r for r in json.load(f)["rows"]}
+
+    def launched(kernel):
+        torch.cuda.synchronize()
+        got = dict(decoder_cuda.LAUNCHES)
+        if got[kernel] < 1 or any(n for k, n in got.items() if k != kernel):
+            raise AssertionError(f"expected launches of {kernel} only, got {got}")
+        return got
+
+    out = {}
+    watch = Stopwatch()
+    torch.cuda.synchronize()
+    decoder_cuda.reset_launches()
+    line = bench._headline(device=dev, **BENCH_HEADLINE_CUT)
+    d = line["detail"]
+    out["headline"] = dict(
+        cut=d["cut"], protocol=d["protocol"], transport_blocks_per_s=d["transport_blocks_per_sec"],
+        median_transport_blocks_per_s=d["median_transport_blocks_per_sec"],
+        decoded_info_mbit_per_s=line["value"], mean_iterations_per_tb=d["mean_iterations_per_tb"],
+        block_errors=d["block_errors"], blocks=d["blocks"],
+        scalar_cpu_codewords_per_s=d["scalar_cpu_codewords_per_sec"],
+        vs_measured_scalar_cpu=line["vs_measured_scalar_cpu"],
+        launches=launched("ldpc_layered"), launches_by_P=launches_by_p(), seconds=watch.lap())
+    if d["block_errors"] > 2 or set(d["scalar_cpu_codewords_per_sec"]) != {
+            "min-sum", "sum-product"}:
+        raise AssertionError(f"bench headline: {out['headline']}")
+
+    jax_rows, port_rows = golden_rows("golden"), golden_rows("golden_torch")
+    rows = []
+    for row in bench.sweep_rows():
+        torch.cuda.synchronize()
+        decoder_cuda.reset_launches()
+        (r,) = bench.run_sweep(device=dev, names=[row["name"]], **BENCH_SWEEP_CUT)
+        rec = dict(name=r["name"], tb_per_s=r["tb_per_sec"], info_mbit_per_s=r["info_mbps"],
+                   mean_iterations_per_tb=r["mean_iterations_per_tb"], bler=r["bler"],
+                   blocks=r["blocks"], codewords_per_block=r["seen"]["codewords_per_block"],
+                   launches=launched(decoder_cuda.KERNEL_NAMES[row["cfg"].schedule]),
+                   launches_by_P=launches_by_p())
+        for ref, golden in (("jax", jax_rows), ("port", port_rows)):
+            want = golden[r["name"]]["mean_iterations_per_tb"]
+            rec[f"{ref}_mean_iterations_per_tb"] = want
+            if abs(r["mean_iterations_per_tb"] - want) > BENCH_ITERATION_TOLERANCE * want:
+                raise AssertionError(f"bench row {r['name']}: mean iterations "
+                                     f"{r['mean_iterations_per_tb']} against {ref} {want}")
+        g = jax_rows[r["name"]]
+        rec["bler_gate"] = two_sample_gate(
+            f"bench_sweep/{r['name']}", r["esn0_db"], r["blocks"],
+            r["seen"]["block_errors"], g["blocks"], round(g["bler"] * g["blocks"]))
+        rows.append(rec)
+    out["sweep"] = dict(cut=BENCH_SWEEP_CUT, rows=rows, seconds=watch.lap())
+
+    torch.cuda.synchronize()
+    decoder_cuda.reset_launches()
+    op_rates.reset_launches()
+    lines, cache = [], {}
+    for name, fields, iterations, esn0_db, schedule in roofline.ROWS:
+        r = roofline.measure_row(name, fields, iterations, esn0_db, schedule, roofline.BATCH,
+                                 dev, BENCH_ROOFLINE_REPS, cache, card)
+        if r["launches"][decoder_cuda.KERNEL_NAMES[schedule]] < 1:
+            raise AssertionError(f"roofline row {name} launched no {schedule} kernel")
+        lines.append({k: r[k] for k in (
+            "name", "us_per_codeword", "mean_sweeps", "operations_per_codeword", "bound_ms",
+            "bound_by", "measured_rate_ms", "ms", "share_of_bound", "share_of_measured_rate",
+            "codewords_per_block", "layout", "launches")})
+    torch.cuda.synchronize()
+    out["roofline"] = dict(rows=lines, op_rates_launches=op_rates.LAUNCHES[op_rates.KERNEL_NAME],
+                           seconds=watch.lap())
+    if out["roofline"]["op_rates_launches"] < 1:
+        raise AssertionError("the roofline measured no op rate")
+
+    cfg = flagship_config()
+    generator = make_generator(3, dev)
+    decoder_cuda.reset_launches()
+    p1 = profile_sim.measure(
+        "simulate_batch esn0=1 (P1)",
+        lambda _: simulate_batch(cfg, generator, MAIN_ESN0_DB, MAIN_BATCH, device=dev).block_errors,
+        torch.zeros(1, device=dev), MAIN_BATCH, dev, card)
+    out["profile_sim_p1"] = dict(
+        {k: p1[k] for k in ("ms_per_call", "device_busy_ms", "device_idle_share",
+                            "kernels_per_call")},
+        launches=launched("ldpc_layered"), seconds=watch.lap())
     return out
 
 
@@ -2632,6 +2503,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         goldens = phase_goldens(dev, tmp)
     emit({"phase": "goldens", "card": card, **goldens, "seconds": watch.lap()})
+
+    emit({"phase": "bench", "card": card, **phase_bench(dev, card), "seconds": watch.lap()})
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})

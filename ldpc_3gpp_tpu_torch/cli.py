@@ -9,6 +9,7 @@ commands run from any cwd:
 - ``ldpc-torch-testbench``  — randomized differential conformance vs the C++
                               oracle (testbench.m equivalent, plus decode fuzz)
 - ``ldpc-torch-plot``       — overlay of reference-format results files
+- ``ldpc-torch-bench``      — the single-GPU throughput benchmark (bench.py)
 
 Every command that simulates takes ``--device`` (default ``cuda``: the CUDA
 kernels; it raises where there is no card) and ``--device cpu`` runs the
@@ -428,6 +429,13 @@ def testbench_main(argv=None):
         print(f"[{trial}] ok BG{BG} A={A} G={G} Q_m={Q_m} N_L={N_L} "
               f"rv={rv_id} C={p.C} Z={p.Z_c} LBRM={I_LBRM}")
     print(f"{tested}/{trial} configs bit-exact vs native oracle")
+
+
+def bench_main(argv=None):
+    """Single-GPU throughput benchmark (see ldpc_3gpp_tpu_torch/bench.py)."""
+    from ldpc_3gpp_tpu_torch.bench import main as _main
+
+    _main(argv)
 
 
 def plot_results_main(argv=None):

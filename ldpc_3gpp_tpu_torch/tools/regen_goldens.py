@@ -24,10 +24,10 @@ Stages (all by default, or name a subset):
   bulksp    bulk_sp_montecarlo.json (2M QPSK blocks, SP flooding)
   bulklbrm  bulk_lbrm_montecarlo.json (2M blocks, N_L=2 + LBRM-limited)
   bulkcbgti bulk_cbgti_montecarlo.json (2M blocks, per-stage CBGTI HARQ)
+  bench_sweep bench_sweep.json (the port's ``bench.py --sweep`` rows)
 
-The JAX tool's ``bench_sweep`` stage and its ``doc_consistency`` guard both
-read the JAX package's ``bench.py`` (``run_sweep``, the headline dispatch
-protocol); they wait for the port's own benchmark and are not here.
+Like the JAX tool, it refuses to run while ``doc_consistency`` finds a doc
+of the port quoting another headline protocol than ``bench.py``'s.
 ``--restamp`` refreshes the ``semantics`` stamp of every artifact in the
 directory without re-measuring: only after a change shown neutral on the
 card (``chip_smoke.py``'s ``goldens`` phase re-measures points of these
@@ -75,12 +75,15 @@ SPVSMS = dict(
             ("NMS-flooding", "min-sum", "flooding"),
             ("NMS-layered-pallas", "min-sum", "layered")),
 )
-# tools/regen_goldens.py:127-133: the JAX stage runs its XLA decoder
-# (backend "fast"), so the port runs its plain 'fast' decoder, on the card
+# tools/regen_goldens.py:127-133, with one deliberate difference: the JAX
+# stage runs its XLA decoder (backend "fast"); the port runs its flooding
+# kernel (backend 'auto'), bit-exact to its plain 'fast' decoder, whose
+# draws do not depend on the backend: the same points, in seconds instead of
+# a quarter of an hour of the plain decoder's launches on the card
 CONFIG1 = dict(
     A=100, rate=1 / 2, bg=2, modulation="QPSK", iterations=50,
     target_block_errors=100, target_bler=1e-3, esn0_start=0.0, esn0_delta=0.5,
-    seed=0, algorithm="min-sum", backend="fast", schedule="flooding",
+    seed=0, algorithm="min-sum", backend="auto", schedule="flooding",
     batch_per_device=1024, steps_per_call=2,
 )
 # tools/regen_goldens.py:163-169 (waterfall) and :181-190 (HARQ IR demo:
@@ -252,7 +255,8 @@ def spvsms(out_dir=DEFAULT_DIR, device="cuda", results_dir=RESULTS_DIR, sp_point
 
 
 def config1(out_dir=DEFAULT_DIR, device="cuda", results_dir=RESULTS_DIR, **overrides):
-    """BASELINE config #1 through the plain 'fast' decoder on the device."""
+    """BASELINE config #1 through the flooding kernel (the plain 'fast'
+    decoder on the CPU)."""
     check_out_path(out_dir)
     p = _merge(CONFIG1, overrides)
     pts = _sweep(p, results_dir, device)
@@ -265,8 +269,9 @@ def config1(out_dir=DEFAULT_DIR, device="cuda", results_dir=RESULTS_DIR, **overr
             f"min-sum (alpha=0.8125) {p['iterations']} iterations, early "
             f"termination, >={p['target_block_errors']} block errors/point, "
             f"seed {p['seed']}, {p['batch_per_device']} x {p['steps_per_call']} "
-            "blocks per call. The port's plain 'fast' decoder (as the JAX "
-            f"stage's XLA decoder) on {card_label(device)}." + _cut(overrides)
+            f"blocks per call. The port's flooding kernel (backend "
+            f"'{p['backend']}', bit-exact to its plain 'fast' decoder, the JAX "
+            f"stage's) on {card_label(device)}." + _cut(overrides)
         ),
         "semantics": semantics_fingerprint(),
         **d,
@@ -560,11 +565,109 @@ def bulkcbgti(out_dir=DEFAULT_DIR, device="cuda", results_dir=RESULTS_DIR, **ove
     return _bulk("bulk_cbgti_montecarlo.json", BULKCBGTI, out_dir, device, **overrides)
 
 
+# tools/regen_goldens.py:464-496: ``run_sweep()`` at its defaults (3 trials of
+# 2 calls per row), the rows of ``bench.sweep_rows``
+BENCH_SWEEP = dict(trials=3, reps=2, steps=None)
+
+
+def bench_sweep(out_dir=DEFAULT_DIR, device="cuda", results_dir=RESULTS_DIR, **overrides):
+    """bench_sweep.json: the early-termination throughput economics (decoded
+    Mbit/s and mean iterations per TB against Es/N0, against the iteration
+    budget, and the non-flagship rows) of ``bench.py --sweep``.  Overrides:
+    the protocol's keys, and ``names`` to measure some rows only."""
+    from ..bench import ROW_KEYS, run_sweep
+
+    check_out_path(out_dir)
+    names = overrides.pop("names", None)
+    p = _merge(BENCH_SWEEP, overrides)
+    rows = run_sweep(device=device, names=names, **p)
+    cut = dict(overrides, **({"names": names} if names is not None else {}))
+    dump(out_dir, "bench_sweep.json", {
+        "description": (
+            "Early-termination throughput economics (python -m "
+            f"ldpc_3gpp_tpu_torch.bench --sweep) on {card_label(device)}: decoded "
+            "info Mbit/s, TB/s, mean BP iterations/TB and observed BLER per row, "
+            f"best of {p['trials']} trials of {p['reps']} calls per host fetch.  Rows: "
+            "flagship (BG1 A=8424 Z=384 R=1/3 QPSK layered NMS 12 it) vs Es/N0 "
+            "-1..+4 dB; flagship vs iteration budget {4,8,12,25} at +1 dB; BG2 "
+            "A=2048 Z=208 SP-flooding 8 it (reference comm.LDPCDecoder semantics) "
+            "at +2 dB; the same config SP-LAYERED at +2 dB; small-Z BG2 A=600 Z=72 "
+            "layered NMS at +2 dB (the row keeps the JAX name 'packed'; the port's "
+            "rule packs no codewords at Z=72); flagship 2-stage HARQ IR at -2 dB.  "
+            "Each row at the JAX rows' batch x steps (64-256 steps of 128 blocks, "
+            "512 at Z=72).  TB/s are host-clock times of host-bound steps and move "
+            "between calls; the mean iterations and the BLER are the rows' "
+            "statistics." + _cut(cut)
+        ),
+        "semantics": semantics_fingerprint(),
+        "rows": [{k: r[k] for k in ROW_KEYS} for r in rows],
+    })
+    return {"blocks": sum(r["blocks"] for r in rows)}
+
+
 STAGES = {
     "headline": headline, "spvsms": spvsms, "config1": config1, "config2": config2,
     "benchcfg": benchcfg, "surface": surface, "snrvsa": snrvsa, "bulk": bulk,
     "bulksp": bulksp, "bulklbrm": bulklbrm, "bulkcbgti": bulkcbgti,
+    "bench_sweep": bench_sweep,
 }
+
+#: the port's docs that quote the headline protocol: (path under the root,
+#: the heading that starts the port's part of it, or None for the whole)
+PORT_DOCS = (
+    ("README.md", "## The PyTorch/CUDA port"),
+    ("PERF.md", None),
+    (os.path.join(".claude", "skills", "verify", "SKILL.md"), "## The PyTorch/CUDA port"),
+)
+
+
+def doc_consistency(root=None) -> list:
+    """The port's doc guard, the counterpart of the JAX tool's: every
+    "<batch>x<steps>" the port's docs quote for the headline protocol
+    matches ``bench.py``'s ``HEADLINE_BATCH`` and ``HEADLINE_STEPS``.
+
+    Rule: in the port's part of each doc of ``PORT_DOCS``, a line that has
+    the word 'headline' and a token ``<HEADLINE_BATCH>x<digits>`` must quote
+    the current protocol, unless it is marked 'historical'; and each doc
+    must state the current protocol at least once.  Returns the problems
+    (empty: consistent); ``main`` refuses to regenerate while there are any.
+    """
+    import re
+
+    from ..bench import HEADLINE_BATCH, HEADLINE_STEPS
+
+    proto = f"{HEADLINE_BATCH}x{HEADLINE_STEPS}"
+    root = root or os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    tok = re.compile(rf"\b{HEADLINE_BATCH}x(\d+)\b")
+    problems = []
+    for rel, heading in PORT_DOCS:
+        path = os.path.join(root, rel)
+        if not os.path.exists(path):
+            problems.append(f"{rel}: missing")
+            continue
+        with open(path) as f:
+            lines = f.read().splitlines()
+        start = 0
+        if heading is not None:
+            found = [i for i, line in enumerate(lines) if line.startswith(heading)]
+            if not found:
+                problems.append(f"{rel}: no section {heading!r}")
+                continue
+            start = found[0]
+        mentions_proto = False
+        for i, line in enumerate(lines[start:], start + 1):
+            if proto in line:
+                mentions_proto = True
+            if "headline" not in line or "historical" in line:
+                continue
+            for m in tok.finditer(line):
+                if m.group(0) != proto:
+                    problems.append(
+                        f"{rel}:{i}: stale headline protocol {m.group(0)!r} "
+                        f"(bench.py uses {proto}): {line.strip()!r}")
+        if not mentions_proto:
+            problems.append(f"{rel}: never states the current headline protocol {proto}")
+    return problems
 
 
 def restamp(out_dir=DEFAULT_DIR):
@@ -635,6 +738,12 @@ def main(argv: Optional[list] = None) -> list:
     if args.restamp:
         restamp(args.out_dir)
         return []
+    problems = doc_consistency()
+    if problems:
+        raise SystemExit(
+            "doc/protocol drift (fix the docs or bench.py first; the "
+            "regeneration owns the artifacts the docs quote):\n  "
+            + "\n  ".join(problems))
     from ..utils.device import resolve_device
 
     dev = resolve_device(args.device)

@@ -37,8 +37,11 @@ EXPECTED = (
     "SNR_vs_A_BG1_R13_QPSK_50it_sumproduct.json", "bulk_montecarlo.json",
     "bulk_sp_montecarlo.json", "bulk_lbrm_montecarlo.json",
     "bulk_cbgti_montecarlo.json", "de_thresholds.json", "demod_methods_64QAM.json",
-    "na_bound.json",
+    "na_bound.json", "bench_sweep.json",
 )
+# the JAX gate on a bench_sweep row's mean iterations per transport block
+# (tests/test_tpu_kernel.py:323-328)
+BENCH_ITERATION_TOLERANCE = 0.15
 PRESENT = sorted(n for n in os.listdir(PORT) if n.endswith(".json")) if os.path.isdir(PORT) else []
 
 # Curves whose artifacts store the BLER alone: (file, curve) -> (blocks per
@@ -292,3 +295,21 @@ def test_cross_anchor(anchor):
                                    esn0[mask][::-1]))
         gap = crossing - rows["bg2_headline"]["threshold_esn0_db"]
         assert 0 < gap < 3.2, (crossing, gap)
+
+
+def test_bench_sweep_rows_against_the_jax_golden():
+    """The same rows; each row's mean iterations per transport block within
+    15 % of the JAX row's, its BLER inside the two-sample bound (counts from
+    the rounded BLER and the blocks of each side).  TB/s are not compared:
+    the port's are the card's, the JAX golden's a TPU's."""
+    mine, theirs = (_load(root, "bench_sweep.json")["rows"] for root in (PORT, GOLDEN))
+    assert [r["name"] for r in mine] == [r["name"] for r in theirs]
+    for m, t in zip(mine, theirs):
+        assert set(m) == set(t), m["name"]
+        for key in ("esn0_db", "iterations_budget", "algorithm", "schedule", "A", "Z", "BG"):
+            assert m[key] == t[key], (m["name"], key)
+        want = t["mean_iterations_per_tb"]
+        assert abs(m["mean_iterations_per_tb"] - want) <= BENCH_ITERATION_TOLERANCE * want, m
+        two_sample_gate(f"bench_sweep/{m['name']}", m["esn0_db"], m["blocks"],
+                        round(m["bler"] * m["blocks"]), t["blocks"],
+                        round(t["bler"] * t["blocks"]))

@@ -10,14 +10,15 @@ import pytest
 import torch
 
 import ldpc_3gpp_tpu_torch
-from ldpc_3gpp_tpu_torch import api, cli, entry
+from ldpc_3gpp_tpu_torch import api, bench, cli, entry
 from ldpc_3gpp_tpu_torch.models import chain as t_chain
 from ldpc_3gpp_tpu_torch.models import decoder as t_dec
 from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
 from ldpc_3gpp_tpu_torch.tools import (
-    bulk_montecarlo, demod_compare, density_evolution, lifting_sweep, pod_campaign,
-    regen_goldens,
+    bulk_montecarlo, demod_compare, density_evolution, exp_batch_collapse, exp_bench_scan,
+    exp_fused_share, exp_rng_floor, lifting_sweep, pod_campaign, profile_sim, profile_stages,
+    regen_goldens, roofline,
 )
 from ldpc_3gpp_tpu_torch.utils.rng import make_generator
 from test_torch_distributed import group_of_one
@@ -40,6 +41,9 @@ EXPECTED_MODULES = {
     "tools.pod_campaign", "tools.lifting_sweep", "tools.na_bound",
     "tools.density_evolution", "tools.demod_compare", "tools.regen_goldens",
     "tools.regen_plots", "tools.plot_snr_vs_a_surface", "utils.artifacts",
+    "bench", "tools.roofline", "tools.profile_stages", "tools.profile_sim",
+    "tools.exp_bench_scan", "tools.exp_batch_collapse", "tools.exp_fused_share",
+    "tools.exp_rng_floor",
 }
 
 
@@ -157,6 +161,17 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
             main(argv)
     assert not (tmp_path / "tool.json").exists()
     assert not (tmp_path / "golden_out").exists()
+    # the benchmark and the measurement tools
+    for main, argv in (
+        (bench.main, []), (bench.main, ["--sweep"]), (cli.bench_main, []),
+        (roofline.main, []), (profile_stages.main, []), (profile_sim.main, []),
+        (exp_bench_scan.main, []), (exp_batch_collapse.main, ["stages"]),
+        (exp_fused_share.main, []), (exp_rng_floor.main, []),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.measure_throughput(cfg, 1.0, batch=4, steps=1, trials=1, reps=1)
 
 
 def test_chip_smoke_fails_without_a_gpu():

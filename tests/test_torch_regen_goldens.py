@@ -35,7 +35,8 @@ JAX_PROTOCOLS = {
                    curves=(("SP-flooding", "sum-product", "flooding"),
                            ("NMS-flooding", "min-sum", "flooding"),
                            ("NMS-layered-pallas", "min-sum", "layered"))),
-    # :127-133 (backend 'fast' there and here)
+    # :127-133 (backend 'fast' there; the port's one deliberate difference,
+    # backend 'auto', is held in test_protocols_equal_the_jax_stages)
     "CONFIG1": dict(A=100, rate=1 / 2, bg=2, modulation="QPSK", iterations=50,
                     target_block_errors=100, target_bler=1e-3, esn0_start=0.0,
                     esn0_delta=0.5, seed=0, algorithm="min-sum", backend="fast",
@@ -93,7 +94,13 @@ JAX_PROTOCOLS = {
                       esn0=-0.5, iterations=8, algorithm="min-sum", schedule="layered",
                       rv_sequence=(0, 2), cbgti_seq=((), (0,)), batch_per_device=256,
                       steps_per_call=32),
+    # :473 calls run_sweep() at its defaults (ldpc_3gpp_tpu/bench.py:311:
+    # trials 3, reps 2; every row at its own steps)
+    "BENCH_SWEEP": dict(trials=3, reps=2, steps=None),
 }
+# The port's deliberate differences from the JAX stages: config #1 runs the
+# flooding kernel, bit-exact to the plain 'fast' decoder the JAX stage runs
+DIFFERENCES = {"CONFIG1": {"backend": "auto"}}
 # tools/demod_compare.py:36-42
 JAX_DEMOD = dict(A=4008, rate=1 / 2, bg=1, modulation="64QAM", iterations=12,
                  target_block_errors=100, target_bler=1e-3, esn0_start=8.0, esn0_delta=0.25,
@@ -123,6 +130,7 @@ TINY = {
     "snrvsa": dict(A=(100,), bg=2, rate=1 / 2, iterations=2, target_block_errors=2,
                    target_bler=0.3, esn0_start=5.0, esn0_delta=2.0, batch_per_device=64,
                    steps_per_call=1),
+    "bench_sweep": dict(trials=1, reps=1, steps=1, names=("bg2_z72_packed_layered",)),
 }
 FILES = {
     "headline": "BLER_vs_SNR_BG2_A3842_R13_QPSK_8it_sumproduct.json",
@@ -132,6 +140,7 @@ FILES = {
     "benchcfg": "bench_path_bler.json",
     "surface": "SNR_vs_A_surface.json",
     "snrvsa": "SNR_vs_A_BG1_R13_QPSK_50it_sumproduct.json",
+    "bench_sweep": "bench_sweep.json",
 }
 
 
@@ -160,12 +169,13 @@ def assert_keys_of_the_jax_golden(mine, name):
 
 def test_protocols_equal_the_jax_stages():
     for name, protocol in JAX_PROTOCOLS.items():
-        assert getattr(rg, name) == protocol, name
+        assert getattr(rg, name) == {**protocol, **DIFFERENCES.get(name, {})}, name
+    assert JAX_PROTOCOLS["CONFIG1"]["backend"] == "fast"
     assert demod_compare.PROTOCOL == JAX_DEMOD
     assert demod_compare.METHODS == ("exact", "maxlog")
     assert set(rg.STAGES) == {"headline", "spvsms", "config1", "config2", "benchcfg",
                               "surface", "snrvsa", "bulk", "bulksp", "bulklbrm",
-                              "bulkcbgti"}
+                              "bulkcbgti", "bench_sweep"}
 
 
 @pytest.mark.parametrize("stage", list(TINY))
@@ -186,6 +196,10 @@ def test_stage_writes_the_jax_goldens_keys(stage, tmp_path):
     if stage == "headline":
         assert len(rec["points"]) == len(art["esn0_db"])
         assert (out / "BLER_vs_SNR_100_0.5_2_QPSK_2_2_4_0.txt").exists()
+    if stage == "bench_sweep":  # each row has the keys of the JAX golden's rows
+        (theirs,) = {tuple(r) for r in _load(os.path.join(GOLDEN, FILES[stage]))["rows"]}
+        assert [tuple(r) for r in art["rows"]] == [theirs]
+        assert art["rows"][0]["name"] == "bg2_z72_packed_layered"
 
 
 def test_demod_compare_writes_the_jax_goldens_keys(tmp_path):
