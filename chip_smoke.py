@@ -57,7 +57,13 @@ iterations within 15 % of both ``bench_sweep`` goldens and its BLER inside
 the two-sample bound of the JAX row), the roofline's three rows
 (``tools/roofline.py``, which holds ``kernel_bound`` and ``measure_variant``
 for the ``kernels`` line) and ``tools/profile_sim.py``'s busy and idle share
-at P1, each part with its launches counted.
+at P1, each part with its launches counted.  Then the experiment tools
+(``experiments``): the alpha scan, the ``alpha_schedule`` screen with the
+baseline's gate at -0.75 dB inside the two-sample bound of
+``golden/bench_path_bler.json``, float32 against bfloat16 messages and the
+launch-shape scan at cut sizes, each tool with its launches counted and one
+of its rows equal to the plain version, every launch shape equal to the
+rules' launch.
 
 It holds the packed kernels (several small-Z codewords per block) equal to the
 one-codeword kernels and the plain versions, the op-rate microbenchmark equal
@@ -2311,6 +2317,115 @@ def phase_bench(dev, card):
     return out
 
 
+EXPERIMENTS_BATCH = 512
+EXPERIMENTS_BF16_BATCH = 256
+EXPERIMENTS_GATE_BLOCKS = 2048
+# the baseline and three of the 15 candidates, V5's (0.65, 2) among them
+EXPERIMENTS_SCHEDULES = ((0.55, 1), (0.65, 2), (0.75, 3))
+
+
+def phase_experiments(dev):
+    """The four experiment tools' row functions on the card at a cut, each
+    with the launch counts set to 0 before it and read after: each launches
+    the kernels it should and no other, one row of each equals its plain
+    version (tolerance 0), every ``exp_kernel_tiles`` alternative equals the
+    rules' launch, the alpha scan's 0.8125 row and the schedule screen's
+    baseline agree on the same LLRs, and the baseline's -0.75 dB gate lies
+    inside the two-sample bound of ``golden/bench_path_bler.json``."""
+    from ldpc_3gpp_tpu_torch.bench import _flagship_config
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.tools import exp_alpha, exp_alpha_schedule, exp_bf16
+    from ldpc_3gpp_tpu_torch.tools import exp_kernel_tiles
+
+    def counted(run, *kernels):
+        torch.cuda.synchronize()
+        decoder_cuda.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = dict(decoder_cuda.LAUNCHES)
+        if any((got[k] > 0) != (k in kernels) for k in got):
+            raise AssertionError(f"expected launches of {kernels} only, got {got}")
+        return out, got
+
+    def plain_equal(params, llr, row, **kw):
+        return require_equal(row["result"], decoder_cuda.decode_plain(params, llr, **kw),
+                             row["name"])
+
+    def summary(rows, *keys):
+        return [{k: r[k] for k in ("name", *keys) if k in r} for r in rows]
+
+    out, watch = {}, Stopwatch()
+    cfg = _flagship_config(exp_alpha.ITERATIONS)
+    params = cfg.params
+    cw, llr = exp_alpha.cw_llrs(params, EXPERIMENTS_BATCH, exp_alpha.ESN0_DB,
+                                exp_alpha.NOISE_SEED, dev)
+    rows, launches = counted(lambda: exp_alpha.alpha_rows(params, llr, cw), "ldpc_layered")
+    base = next(r for r in rows if r["alpha"] == 0.8125)
+    diff = plain_equal(params, llr, base, alpha=0.8125, **exp_alpha.DECODE_KW)
+    out["exp_alpha"] = dict(
+        codewords=EXPERIMENTS_BATCH, launches=launches, plain_row=base["name"],
+        max_abs_diff=diff, rows=summary(rows, "mean_iterations", "block_errors",
+                                        "us_per_codeword"), seconds=watch.lap())
+
+    screened, launches = counted(lambda: exp_alpha_schedule.screen(
+        params, llr, cw, EXPERIMENTS_SCHEDULES), "ldpc_layered")
+    v5 = next(r for r in screened if r["alpha_schedule"] == (0.65, 2))
+    diff = plain_equal(params, llr, v5, alpha_schedule=(0.65, 2), **exp_alpha.DECODE_KW)
+    if (screened[0]["mean_iterations"], screened[0]["block_errors"]) != (
+            base["mean_iterations"], base["block_errors"]):
+        raise AssertionError(f"schedule baseline {screened[0]} against alpha 0.8125 {base}")
+    esn0_db, errors, blocks, seed = exp_alpha_schedule.GATE_POINTS[0]
+    gate, gate_launches = counted(lambda: exp_alpha_schedule.gate_row(
+        cfg, screened[0], EXPERIMENTS_GATE_BLOCKS, dev, points=((esn0_db, errors, blocks, seed),),
+    ), "ldpc_layered")
+    point = gate["points"][0]
+    out["exp_alpha_schedule"] = dict(
+        codewords=EXPERIMENTS_BATCH, launches=launches, plain_row=v5["name"], max_abs_diff=diff,
+        rows=summary(screened, "mean_iterations", "block_errors", "us_per_codeword"),
+        baseline_gate=dict(point, launches=gate_launches, bound=two_sample_gate(
+            "exp_alpha_schedule baseline", esn0_db, point["blocks"], point["block_errors"],
+            blocks, errors)),
+        seconds=watch.lap())
+
+    cw_bf, llr_bf = exp_alpha.cw_llrs(params, EXPERIMENTS_BF16_BATCH, exp_alpha.ESN0_DB,
+                                    exp_alpha.NOISE_SEED, dev)
+    rows, launches = counted(lambda: exp_bf16.bf16_rows(params, llr_bf, cw_bf),
+                             "ldpc_layered", "ldpc_flooding")
+    row = next(r for r in rows if r["name"] == "flooding bfloat16 threads=512")
+    diff = plain_equal(params, llr_bf, row, iterations=exp_alpha.ITERATIONS, algorithm="min-sum",
+                       schedule="flooding", message_dtype="bfloat16")
+    misfits = [r["name"] for r in rows if not r["fits"]]
+    if len(misfits) != 4 or any(" P=1" in name for name in misfits):
+        raise AssertionError(f"exp_bf16: shapes that do not fit Z=384: {misfits}")
+    out["exp_bf16"] = dict(
+        codewords=EXPERIMENTS_BF16_BATCH, launches=launches, plain_row=row["name"],
+        max_abs_diff=diff, misfits=misfits,
+        rows=summary(rows, "launch", "block_errors", "parity_failures", "us_per_codeword"),
+        seconds=watch.lap())
+
+    def tiles():
+        rows = []
+        for case, n, kw, ps, threads in exp_kernel_tiles.CASES:
+            p, x = exp_kernel_tiles.case_inputs(case, n, dev)
+            rows.append((p, x, kw, exp_kernel_tiles.case_rows(case, p, x, kw, ps, threads)))
+        return rows
+
+    cases, launches = counted(tiles, "ldpc_layered", "ldpc_flooding")
+    p, x, kw, rows = cases[1]
+    row = next(r for r in rows if r["name"] == "config #1 layered P=4")
+    diff = plain_equal(p, x, row, schedule="layered", **kw)
+    rows = [r for _, _, _, case_rows in cases for r in case_rows]
+    fitting = [r for r in rows if r["fits"]]
+    if not all(r["equal_to_the_rule"] for r in fitting) or sum(
+            r["rule_choice"] for r in fitting) != 2 * len(cases):
+        raise AssertionError(f"exp_kernel_tiles: {summary(rows, 'equal_to_the_rule')}")
+    out["exp_kernel_tiles"] = dict(
+        launches=launches, plain_row=row["name"], max_abs_diff=diff,
+        rows=summary(rows, "launch", "rule_choice", "equal_to_the_rule", "ms", "mean_sweeps"),
+        seconds=watch.lap())
+    return out
+
+
 VARIANTS = [
     ("V1", LAYERED_SOURCE, TPU_KERNEL),
     ("V1'", LAYERED_SOURCE, TPU_KERNEL + " (:213-214, 243-261, 358-359)"),
@@ -2505,6 +2620,8 @@ def main() -> int:
     emit({"phase": "goldens", "card": card, **goldens, "seconds": watch.lap()})
 
     emit({"phase": "bench", "card": card, **phase_bench(dev, card), "seconds": watch.lap()})
+    emit({"phase": "experiments", "card": card, **phase_experiments(dev),
+          "seconds": watch.lap()})
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})

@@ -655,8 +655,9 @@ def decode(
     codeword; P > 1 asks for P and raises where P*Z exceeds a block's
     threads or shared memory.  Results do not depend on it.
 
-    ``_threads`` (internal, for ``tools/flooding_shapes.py``, which times
-    the alternatives to the block-size rule): a flooding launch's threads
+    ``_threads`` (internal, for ``tools/flooding_shapes.py``,
+    ``exp_bf16.py`` and ``exp_kernel_tiles.py``, which time the alternatives
+    to the block-size rule): a flooding launch's threads
     per block instead of ``flooding_threads``'s; 0 keeps the rule.  Results
     do not depend on it.  ``_lib`` (internal, for
     ``tools/layered_probe.py``): a library of the schedule's kernel to launch

@@ -25,6 +25,7 @@ prints one JSON line per case and seed with the card's name and power limit
 """
 from __future__ import annotations
 
+import functools
 import json
 import sys
 
@@ -32,7 +33,8 @@ import torch
 
 from ..ops import decoder_cuda
 from ..spec.params import LDPCParams
-from .op_rates import card_name_and_power_limit, time_ms
+from ..utils.profiling import time_ms
+from .op_rates import card_name_and_power_limit
 from .small_z import noisy_llrs
 
 _KW = dict(schedule="flooding", channel_format="d", output_format="sys")
@@ -64,6 +66,29 @@ def _same(a, b) -> bool:
             and torch.equal(a.iterations, b.iterations))
 
 
+def case_llrs(params, n: int, esn0_db: float, seed: int, device):
+    """A case's 'd' LLRs for one seed of LLRs."""
+    return noisy_llrs(params, n, esn0_db, 300 + params.Z_c + 1000 * seed, device)
+
+
+def time_launches(params, llr, kw, launches: dict, reps: int, device) -> dict:
+    """``decoder_cuda.decode`` of the same LLRs at each launch of
+    ``launches`` ({label: decode keywords beside ``kw``}, the rule's launch
+    first): {label: {"result", "ms", "equal"}}, ms the mean of
+    ``reps`` launches after the one whose result is kept and one warm-up
+    (``utils/profiling.py::time_ms``: CUDA events on the card, the host
+    clock on the CPU), ``equal`` whether the bits, parity flags and iteration
+    counts equal the first launch's."""
+    out = {}
+    for label, extra in launches.items():
+        fn = functools.partial(decoder_cuda.decode, params, llr, **kw, **extra)
+        res = fn()
+        first = next(iter(out.values()))["result"] if out else res
+        out[label] = dict(result=res, ms=time_ms(fn, reps, warmup=1, device=device),
+                          equal=_same(res, first))
+    return out
+
+
 def shape_table(device, cases=CASES, seeds=SEEDS, reps: int = 10):
     """One record per case and seed: ms of the rule's launch and of each
     alternative block size, and whether all of them agree."""
@@ -73,14 +98,14 @@ def shape_table(device, cases=CASES, seeds=SEEDS, reps: int = 10):
         params = LDPCParams(**fields)
         rule = decoder_cuda.launch_shape(params, n, "flooding",
                                          kw.get("codewords_per_block", 0), sms)
+        threads = [rule["threads"], *sorted(set(threads_list) - {rule["threads"]})]
         for seed in seeds:
-            d = noisy_llrs(params, n, esn0_db, 300 + params.Z_c + 1000 * seed, device)
-            ref = decoder_cuda.decode(params, d, **kw)
-            ms, equal = {}, True
-            for T in sorted({rule["threads"], *threads_list}):
-                fn = lambda: decoder_cuda.decode(params, d, **kw, _threads=T)  # noqa: E731
-                equal &= _same(fn(), ref)
-                ms[f"threads={T}"] = time_ms(fn, reps)
+            d = case_llrs(params, n, esn0_db, seed, device)
+            timed = time_launches(params, d, kw, {f"threads={T}": dict(_threads=T)
+                                                  for T in threads}, reps, device)
+            ref = timed[f"threads={rule['threads']}"]["result"]
+            ms = {label: r["ms"] for label, r in timed.items()}
+            equal = all(r["equal"] for r in timed.values())
             best = min(ms, key=ms.get)
             rows.append({
                 "case": case, "seed": seed, "bg": params.BG, "A": params.A,

@@ -44,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.device import sm_count
 from ..utils.profiling import time_ms
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
@@ -284,8 +285,7 @@ def measure_variant(params, llr, reps, plain=True, **kw):
     n = res.iterations.numel()
     schedule = kw.get("schedule", "layered")
     launch = decoder_cuda.launch_shape(
-        params, n, schedule, kw.get("codewords_per_block", 0),
-        torch.cuda.get_device_properties(dev).multi_processor_count if on_card else 132)
+        params, n, schedule, kw.get("codewords_per_block", 0), sm_count(dev))
     nc = params.num_cols
     bound = kernel_bound(
         params, res, kw["iterations"],

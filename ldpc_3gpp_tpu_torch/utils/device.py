@@ -17,3 +17,13 @@ def resolve_device(device="cuda") -> torch.device:
             "to run the plain PyTorch path on the host"
         )
     return dev
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``'s card, or an H100's 132 for
+    a CPU device: the launch shape a CPU run reports is the one an H100
+    would get."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(dev).multi_processor_count

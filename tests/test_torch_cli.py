@@ -94,10 +94,9 @@ def test_plot_results_main_writes_its_png(tmp_path):
     assert _read(out).startswith(b"\x89PNG")
 
 
-def test_there_is_no_bench_command():
-    """The name is from before the port's ``bench.py``: ``ldpc-torch-bench``
-    now exists (``cli.bench_main``, the console command in pyproject.toml),
-    and it, like the testbench, refuses an unknown flag."""
+def test_the_bench_command_exists_and_refuses_unknown_flags():
+    """``ldpc-torch-bench`` exists (``cli.bench_main``, the console command
+    in pyproject.toml), and it, like the testbench, refuses an unknown flag."""
     import os
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

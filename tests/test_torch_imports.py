@@ -16,9 +16,10 @@ from ldpc_3gpp_tpu_torch.models import decoder as t_dec
 from ldpc_3gpp_tpu_torch.parallel.montecarlo import MonteCarlo
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
 from ldpc_3gpp_tpu_torch.tools import (
-    bulk_montecarlo, demod_compare, density_evolution, exp_batch_collapse, exp_bench_scan,
-    exp_fused_share, exp_rng_floor, lifting_sweep, pod_campaign, profile_sim, profile_stages,
-    regen_goldens, roofline,
+    bulk_montecarlo, demod_compare, density_evolution, exp_alpha, exp_alpha_schedule,
+    exp_batch_collapse, exp_bench_scan, exp_bf16, exp_fused_share, exp_kernel_tiles,
+    exp_rng_floor, lifting_sweep, pod_campaign, profile_sim, profile_stages, regen_goldens,
+    roofline,
 )
 from ldpc_3gpp_tpu_torch.utils.rng import make_generator
 from test_torch_distributed import group_of_one
@@ -43,7 +44,8 @@ EXPECTED_MODULES = {
     "tools.regen_plots", "tools.plot_snr_vs_a_surface", "utils.artifacts",
     "bench", "tools.roofline", "tools.profile_stages", "tools.profile_sim",
     "tools.exp_bench_scan", "tools.exp_batch_collapse", "tools.exp_fused_share",
-    "tools.exp_rng_floor",
+    "tools.exp_rng_floor", "tools.exp_alpha", "tools.exp_alpha_schedule", "tools.exp_bf16",
+    "tools.exp_kernel_tiles",
 }
 
 
@@ -161,12 +163,14 @@ def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
             main(argv)
     assert not (tmp_path / "tool.json").exists()
     assert not (tmp_path / "golden_out").exists()
-    # the benchmark and the measurement tools
+    # the benchmark, the measurement and the experiment tools
     for main, argv in (
         (bench.main, []), (bench.main, ["--sweep"]), (cli.bench_main, []),
         (roofline.main, []), (profile_stages.main, []), (profile_sim.main, []),
         (exp_bench_scan.main, []), (exp_batch_collapse.main, ["stages"]),
         (exp_fused_share.main, []), (exp_rng_floor.main, []),
+        (exp_alpha.main, []), (exp_alpha_schedule.main, []), (exp_bf16.main, []),
+        (exp_kernel_tiles.main, []),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
