@@ -103,29 +103,47 @@ FAMILIES = {
 def write_variant(variant: str, family: str = "min-sum") -> str:
     """The variant's sources under PROBE_DIR (the sum-product family's in
     its own folder); returns its .cu path."""
-    out_dir = os.path.join(PROBE_DIR, *([] if family == "min-sum" else [family]), variant)
+    return write_sources(variant, FAMILIES[family][0][variant],
+                         None if family == "min-sum" else family, (SOURCE, HEADER))
+
+
+def write_sources(variant: str, patches, folder, names) -> str:
+    """The files ``names`` of ``csrc/`` (the kernel's source first) with
+    ``patches`` applied, under PROBE_DIR (in ``folder`` unless None) /
+    ``variant``; returns the source's path.  Raises where a patch does not
+    find its text exactly as often as it says."""
+    out_dir = os.path.join(PROBE_DIR, *([] if folder is None else [folder]), variant)
     os.makedirs(out_dir, exist_ok=True)
     texts = {}
-    for name in (SOURCE, HEADER):
+    for name in names:
         with open(os.path.join(kernels_build.CSRC_DIR, name)) as f:
             texts[name] = f.read()
-    for name, old, new, count in FAMILIES[family][0][variant]:
+    for name, old, new, count in patches:
         if texts[name].count(old) != count:
             raise RuntimeError(f"{variant}: {old!r} is not in {name} {count} times")
         texts[name] = texts[name].replace(old, new)
     for name, text in texts.items():
         with open(os.path.join(out_dir, name), "w") as f:
             f.write(text)
-    return os.path.join(out_dir, SOURCE)
+    return os.path.join(out_dir, names[0])
 
 
 def build_variants(family: str) -> dict:
     """Build every variant of ``family`` (one nvcc each, all started
     together); returns {variant: (declared library, ptxas record of the
     family's one-codeword float32 kernel)}."""
+    return build_sources({v: write_variant(v, family) for v in FAMILIES[family][0]},
+                         "ldpc_layered", FAMILIES[family][4])
+
+
+def build_sources(sources: dict, name: str, entry: str) -> dict:
+    """Build each {variant: .cu path} with the package's nvcc flags (one
+    nvcc each, all started together); returns {variant: (library declared as
+    kernel ``name``, ptxas record of the entry whose mangled name starts with
+    ``entry``)}, or (None, the build's log) for a variant that does not
+    build."""
     procs = {}
-    for v in FAMILIES[family][0]:
-        src = write_variant(v, family)
+    for v, src in sources.items():
         lib = src[:-3] + ".so"
         cmd = [kernels_build._nvcc(), *kernels_build.NVCC_FLAGS, "-o", lib, src]
         procs[v] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -136,8 +154,7 @@ def build_variants(family: str) -> dict:
         if proc.returncode != 0:  # recorded; the other variants go on
             out[v] = (None, {"build_failed": log[-2000:]})
             continue
-        out[v] = (decoder_cuda.declare(ctypes.CDLL(lib), "ldpc_layered"),
-                  _ptxas(log, FAMILIES[family][4]))
+        out[v] = (decoder_cuda.declare(ctypes.CDLL(lib), name), _ptxas(log, entry))
     return out
 
 
@@ -152,9 +169,10 @@ def _ptxas(log: str, entry: str) -> dict:
             continue
         if not inside:
             continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            rec.update(stack=int(m[1]), spill_stores=int(m[2]))
+            rec.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             rec["registers"] = int(m[1])

@@ -11,7 +11,7 @@ from ldpc_3gpp_tpu_torch import kernels_build
 from ldpc_3gpp_tpu_torch.ops import decoder_cuda as t_cuda
 from ldpc_3gpp_tpu_torch.spec.params import LDPCParams as TParams
 from ldpc_3gpp_tpu_torch.spec.tables import ALL_LIFTING_SIZES
-from ldpc_3gpp_tpu_torch.tools import small_z
+from ldpc_3gpp_tpu_torch.tools import flooding_probe, layered_probe, small_z
 
 P2 = dict(BG=2, A=3842, G=11526, Q_m=2)  # Z=208, the default decoder's step
 BG1_Z384 = dict(BG=1, A=8424, G=25272, Q_m=2)
@@ -250,3 +250,28 @@ def test_one_codeword_kernel_has_two_barriers_per_sweep():
     loop = body[body.index("for (int it = 0;; ++it)"):]
     assert loop.count("__syncthreads_or(") == 1 and loop.count("cluster.sync();") == 2
     assert "__syncthreads();" not in loop
+
+
+@pytest.mark.parametrize("variant", sorted(flooding_probe.VARIANTS))
+def test_flooding_probe_variants_patch_the_kernel_source(variant, tmp_path, monkeypatch):
+    """Each variant of ``tools/flooding_probe.py`` finds each text it
+    replaces in the kernel's source exactly as often as it says (the tool
+    raises where it does not), changes only the cluster kernel, and only
+    ``kernel`` leaves the source as it is."""
+    monkeypatch.setattr(layered_probe, "PROBE_DIR", str(tmp_path))
+    for name, old, _, count in flooding_probe.VARIANTS[variant]:
+        assert name == flooding_probe.SOURCE
+        assert _source().count(old) == count, (variant, old)
+    src = flooding_probe.write_variant(variant)
+    assert src == str(tmp_path / flooding_probe.FAMILY / variant / flooding_probe.SOURCE)
+    with open(src) as f:
+        text = f.read()
+    with open(tmp_path / flooding_probe.FAMILY / variant / flooding_probe.HEADER) as f:
+        header = f.read()
+    with open(os.path.join(kernels_build.CSRC_DIR, flooding_probe.HEADER)) as f:
+        assert f.read() == header
+    orig = _source()
+    assert (text == orig) == (variant == "kernel")
+    end = orig.index("// An item's messages in the packed kernel's global scratch")
+    assert text.startswith(orig[:orig.index("struct ClusterTotals")])
+    assert text.endswith(orig[end:])
