@@ -2590,8 +2590,9 @@ def check_registers():
     384-thread blocks per SM); the one-codeword layered sum-product kernel
     (V2) at most 72 (four 224-thread blocks per SM at P3's shape); the
     packed flooding kernel's six instantiations (three rules and message
-    types, messages on chip or in a scratch) at most 64 (1,024 threads per
-    SM).  Returns their records by group."""
+    types, messages on chip or in a scratch) and the flooding cluster
+    kernel's three at most 64 (1,024 threads per SM).  Returns their records
+    by group."""
     from ldpc_3gpp_tpu_torch import kernels_build
 
     layered = ptxas_entries(kernels_build.build_log("ldpc_layered"))
@@ -2603,6 +2604,8 @@ def check_registers():
                 if k.startswith("_Z19ldpc_layered_kernelILb1EfE")}, 72, 1),
         "packed_flooding": ({k: v for k, v in flooding.items()
                              if "ldpc_flooding_packed_kernel" in k}, 64, 6),
+        "cluster_flooding": ({k: v for k, v in flooding.items()
+                              if "ldpc_flooding_cluster_kernel" in k}, 64, 3),
     }
     for name, (entries, most, count) in groups.items():
         bad = {k: v for k, v in entries.items()

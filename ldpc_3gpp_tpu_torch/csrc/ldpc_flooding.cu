@@ -52,8 +52,9 @@
 //     takes 210,704 B): then one block holds the codeword.  Above that a
 //     thread block cluster of 2 or 3 blocks on neighbouring SMs holds it
 //     (ldpc_flooding_cluster_kernel below; 3 at BG1 Z=384), each block with
-//     its share of the rows' messages and of the columns' totals, the other
-//     shares reached through distributed shared memory.  Either way the
+//     its share of the rows to update and of the columns, a column's total
+//     and all of its edges' messages in the same block, the other blocks'
+//     reached through distributed shared memory.  Either way the
 //     messages never touch device memory and no scratch exists.  The other
 //     candidate, a global scratch written by the message phase and read back
 //     by the column phase (two blocks per SM at BG1 Z=384), was slower on an
@@ -95,8 +96,6 @@
 
 #include <cooperative_groups.h>
 
-#include <type_traits>
-
 #include "ldpc_bp.cuh"
 
 namespace cg = cooperative_groups;
@@ -114,28 +113,72 @@ namespace cg = cooperative_groups;
    (size_t)(nr + nc + 2) * 4)
 
 // Shared memory of one block of a cluster (layout (a)): its columns' totals
-// (cols_max columns), its rows' messages (edges_max edges), the full row and
-// column plans, their offsets, the split and the vote words (64 bytes).
-#define FLOODING_CLUSTER_SHARED_BYTES(Z, nc, nr, E, cols_max, edges_max)          \
-  (align16((size_t)cols_max * Z * 4) + align16((size_t)edges_max * Z * 4) + \
-   (size_t)E * 16 + (size_t)(nr + nc + 2) * 4 + 64)
+// and their edges' messages (slots_max Z-lane slots), the edge table and the
+// column table (16 bytes an entry), the row offsets, the plan's header and
+// the vote words (64 bytes).
+#define FLOODING_CLUSTER_SHARED_BYTES(Z, nc, nr, E, slots_max)                     \
+  (align16((size_t)slots_max * Z * 4) + (size_t)E * 16 + (size_t)nc * 16 + \
+   (size_t)(nr + 1) * 4 + 64)
 #define MAX_CLUSTER 3  // the largest cluster: three blocks hold BG1 Z=384
+
+// Where an item's edges are: g.total(i, z) is the total that edge i of the
+// item's row reads at check lane z, g.message(i, z) the edge's message, read
+// and then written by this item alone.
+//   - LocalEdges: the totals and the row's messages in this block's shared
+//     memory (the one-codeword kernel; the packed one with its messages on
+//     chip).  `msg` is the item's first message, the i-th at msg[i*Z].
+//   - ScratchEdges: the same with the messages in the packed kernel's global
+//     scratch, at a 32-bit offset from the block's share, so that an item's
+//     up to MAX_DEG message addresses are not 64-bit values held from the
+//     load to the store (at 64 registers they spilled); phi_i waits in its
+//     edge's message slot, not in registers (kPhiInSlot).
+//   - ClusterEdges (layout (a)): the cluster kernel's edge table; the total
+//     and the message live in the shared memory of the block that owns the
+//     edge's column, reached through distributed shared memory.
+struct LocalEdges {
+  static constexpr bool kPhiInSlot = false;
+  const float* totals;
+  float* msg;
+  const int2* red;
+  int Z;
+  __device__ __forceinline__ float total(int i, int z) const {
+    const int2 ed = red[i];
+    return totals[ed.x + rot(z, ed.y, Z)];
+  }
+  __device__ __forceinline__ float& message(int i, int) const { return msg[i * Z]; }
+};
+struct ScratchEdges {
+  static constexpr bool kPhiInSlot = true;
+  const float* totals;
+  float* base;
+  int off;
+  const int2* red;
+  int Z;
+  __device__ __forceinline__ float total(int i, int z) const {
+    const int2 ed = red[i];
+    return totals[ed.x + rot(z, ed.y, Z)];
+  }
+  __device__ __forceinline__ float& message(int i, int) const { return base[off + i * Z]; }
+};
 // A cluster plan entry: the owning block's rank above OWNER_SHIFT, the offset
 // in its shared memory below.
 #define OWNER_SHIFT 24
 #define OFFSET_MASK 0xffffff
-
-// Where the message phase reads the totals: this block's shared memory, or
-// (layout (a)) the shared memory of the cluster's block that owns the column.
-struct LocalTotals {
-  const float* t;
-  __device__ __forceinline__ float operator()(int x, int idx) const { return t[x + idx]; }
-};
-struct ClusterTotals {
-  float* t;
-  __device__ __forceinline__ float operator()(int x, int idx) const {
-    return *cg::this_cluster().map_shared_rank(t + ((x & OFFSET_MASK) + idx),
-                                               (unsigned)(x >> OWNER_SHIFT));
+struct ClusterEdges {
+  static constexpr bool kPhiInSlot = false;
+  float* slots;      // this block's shared memory: totals, then messages
+  const int4* red;   // (owner << OWNER_SHIFT | total's offset, shift, message's offset, 0)
+  int Z;
+  __device__ __forceinline__ float* owner(const int4& ed) const {
+    return cg::this_cluster().map_shared_rank(slots, (unsigned)(ed.x >> OWNER_SHIFT));
+  }
+  __device__ __forceinline__ float total(int i, int z) const {
+    const int4 ed = red[i];
+    return owner(ed)[(ed.x & OFFSET_MASK) + rot(z, ed.y, Z)];
+  }
+  __device__ __forceinline__ float& message(int i, int z) const {
+    const int4 ed = red[i];
+    return owner(ed)[ed.z + rot(z, ed.y, Z)];
   }
 };
 
@@ -146,18 +189,16 @@ __device__ __forceinline__ float stored(float m) {
   return m;
 }
 
-// One (row, lane) item of the message phase: check z of a base row whose
-// edges are red[0..deg) (column offset, shift), its messages at msg[i*Z]
-// (`msg` a float* or a GlobalMessages).  The reference's check rule
-// (ops/decoder_fast.py), operation for operation; the new messages are
-// stored unrounded in place.  Returns the
-// XOR of the sign bits of the totals read (the row's parity at check z).
-// The slots are unrolled to MAX_DEG and left at the row's degree (a branch
-// out, not predicated slots: a block's rows have degrees 3 to 19).
-template <bool SUM_PRODUCT, bool BF16, typename Totals, typename Msgs>
+// One (row, lane) item of the message phase: check z of a base row of `deg`
+// edges, reached through `g` (LocalEdges, ScratchEdges, ClusterEdges).  The
+// reference's check rule (ops/decoder_fast.py), operation for operation; the
+// new messages are stored unrounded in place.  Returns the XOR of the sign
+// bits of the totals read (the row's parity at check z).  The slots are
+// unrolled to MAX_DEG and left at the row's degree (a branch out, not
+// predicated slots: a block's rows have degrees 3 to 19).
+template <bool SUM_PRODUCT, bool BF16, typename Edges>
 __device__ __forceinline__ unsigned message_item(
-    Totals totals, Msgs msg, const int2* red, int deg,
-    int z, int Z, bool first, float alpha_t, int offset_rule, float beta) {
+    const Edges& g, int deg, int z, bool first, float alpha_t, int offset_rule, float beta) {
   unsigned par = 0;
   if constexpr (!SUM_PRODUCT) {
     float v[MAX_DEG];
@@ -166,10 +207,9 @@ __device__ __forceinline__ unsigned message_item(
     for (int i = 0; i < MAX_DEG; ++i) {
       if (i >= deg) break;
       {
-        const int2 ed = red[i];
-        const float t = totals(ed.x, rot(z, ed.y, Z));
+        const float t = g.total(i, z);
         par ^= __float_as_uint(t);
-        const float ve = first ? t : __fsub_rn(t, stored<BF16>(msg[i * Z]));
+        const float ve = first ? t : __fsub_rn(t, stored<BF16>(g.message(i, z)));
         v[i] = ve;
         const unsigned b = __float_as_uint(ve);
         const unsigned mg = b & MAG_MASK;
@@ -199,29 +239,24 @@ __device__ __forceinline__ unsigned message_item(
       {
         const unsigned b = __float_as_uint(v[i]);
         const unsigned mag = (b & MAG_MASK) == m1 ? m2s : m1s;
-        msg[i * Z] = __uint_as_float(mag ^ (b & SIGN_BIT));
+        g.message(i, z) = __uint_as_float(mag ^ (b & SIGN_BIT));
       }
     }
   } else {
-    // With the messages in the packed kernel's global scratch, phi_i waits
-    // in its edge's message slot (read, then overwritten, by this item
-    // alone), not in registers: at 64 registers the MAX_DEG of them spilled.
-    constexpr bool PHI_IN_SLOT = !std::is_pointer<Msgs>::value;
-    float ph[PHI_IN_SLOT ? 1 : MAX_DEG];
+    float ph[Edges::kPhiInSlot ? 1 : MAX_DEG];
     unsigned neg = 0;
     float T = 0.0f;
 #pragma unroll
     for (int i = 0; i < MAX_DEG; ++i) {
       if (i >= deg) break;
       {
-        const int2 ed = red[i];
-        const float t = totals(ed.x, rot(z, ed.y, Z));
+        const float t = g.total(i, z);
         par ^= __float_as_uint(t);
-        const float ve = first ? t : __fsub_rn(t, msg[i * Z]);
+        const float ve = first ? t : __fsub_rn(t, g.message(i, z));
         neg |= (ve < 0.0f ? 1u : 0u) << i;
         const float p = phi_f32(fabsf(ve));
-        if constexpr (PHI_IN_SLOT)
-          msg[i * Z] = p;
+        if constexpr (Edges::kPhiInSlot)
+          g.message(i, z) = p;
         else
           ph[i] = p;
         T = i == 0 ? p : __fadd_rn(T, p);
@@ -233,14 +268,14 @@ __device__ __forceinline__ unsigned message_item(
       if (i >= deg) break;
       {
         float p;
-        if constexpr (PHI_IN_SLOT)
-          p = msg[i * Z];
+        if constexpr (Edges::kPhiInSlot)
+          p = g.message(i, z);
         else
           p = ph[i];
         const float mag = phi_f32(fmaxf(__fsub_rn(T, p), 1e-9f));
         // (+-1) * mag: an exact sign flip, also of a -0.0 magnitude
         const unsigned s = (sx ^ (neg >> i)) & 1u;
-        msg[i * Z] = __uint_as_float(__float_as_uint(mag) ^ (s << 31));
+        g.message(i, z) = __uint_as_float(__float_as_uint(mag) ^ (s << 31));
       }
     }
   }
@@ -248,14 +283,10 @@ __device__ __forceinline__ unsigned message_item(
 }
 
 // The row parity at check z alone (the pass that only checks).
-template <typename Totals>
-__device__ __forceinline__ unsigned parity_item(Totals totals, const int2* red,
-                                                int deg, int z, int Z) {
+template <typename Edges>
+__device__ __forceinline__ unsigned parity_item(const Edges& g, int deg, int z) {
   unsigned par = 0;
-  for (int i = 0; i < deg; ++i) {
-    const int2 ed = red[i];
-    par ^= __float_as_uint(totals(ed.x, rot(z, ed.y, Z)));
-  }
+  for (int i = 0; i < deg; ++i) par ^= __float_as_uint(g.total(i, z));
   return par;
 }
 
@@ -351,15 +382,14 @@ ldpc_flooding_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
         for (int i = t; i < nr * Z; i += T, w.next()) {
           const int e0 = row_start[w.major];
           bad |= message_item<SUM_PRODUCT, BF16>(
-              LocalTotals{totals}, msgs + (size_t)e0 * Z + w.lane, red + e0,
-              row_start[w.major + 1] - e0, w.lane, Z, first, alpha_t,
-              a.offset_rule, a.beta);
+              LocalEdges{totals, msgs + (size_t)e0 * Z + w.lane, red + e0, Z},
+              row_start[w.major + 1] - e0, w.lane, first, alpha_t, a.offset_rule, a.beta);
         }
       } else {
         for (int i = t; i < nr * Z; i += T, w.next()) {
           const int e0 = row_start[w.major];
-          bad |= parity_item(LocalTotals{totals}, red + e0,
-                             row_start[w.major + 1] - e0, w.lane, Z);
+          bad |= parity_item(LocalEdges{totals, msgs, red + e0, Z},
+                             row_start[w.major + 1] - e0, w.lane);
         }
       }
     }
@@ -400,72 +430,67 @@ ldpc_flooding_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
 
 
 // Layout (a): a thread block cluster of CS blocks decodes one codeword on
-// neighbouring SMs.  Block b owns the base rows [row_lo[b], row_lo[b+1])
-// (about E/CS edges: their messages stay in its shared memory) and the
-// columns [col_lo[b], col_lo[b+1]) (their totals).  The message phase reads
-// the totals of other blocks' columns, and the column phase the messages of
-// other blocks' rows, through distributed shared memory; the phases are
-// separated by cluster barriers, and the vote is one word per block written
-// into every block of the cluster.  `splits` holds row_lo[0..CS] and
-// col_lo[0..CS].  The arithmetic and its order are the one-block kernel's.
+// neighbouring SMs.  Block b runs the message phase of the base rows
+// [rows_lo[b], rows_lo[b+1]) (about E/CS edges) and owns the columns of its
+// range of the column table: their totals and every message of their edges,
+// kept by variable lane in ascending row order, so that the column phase
+// reads only the block's own shared memory, contiguous lanes, with no
+// rotation.  The message phase reaches an edge's total and message in the
+// column's owner through distributed shared memory (ClusterEdges; its own
+// block's too), and stores the new message there.  On an H100 the message
+// phase's arithmetic hides most of that traffic, while the column phase's
+// reads of other blocks' messages, in the form that kept each row's messages
+// with its rows, cost 8.4 % of the kernel's time and left the block with the
+// dense columns summing 257 of BG1's 316 edges; this form is 12-13 % faster
+// at snr_vs_a's A=8000 launch (tools/flooding_probe.py, PERF.md §6).
+// Reaching the own block through a plain pointer instead of the cluster
+// mapping was slower in both forms.  The plan (ops/decoder_cuda.py::
+// _cluster_plan) gives each column to the block that holds most of its
+// edges within the shared memory cap.  The phases are separated by cluster
+// barriers (the message phase's stores into other blocks are complete
+// before any column phase reads them, and no block's totals change while
+// another reads them); the vote is one word per block written into every
+// block of the cluster.  No block reads or writes another's shared memory
+// after the last cluster barrier.  The arithmetic and its order are the
+// one-block kernel's.  Shared memory: FLOODING_CLUSTER_SHARED_BYTES.
 template <bool SUM_PRODUCT, bool BF16>
 __global__ void __launch_bounds__(FLOODING_MAX_THREADS, 1)
 ldpc_flooding_cluster_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
                              int* __restrict__ ok_out, int* __restrict__ it_out,
-                             const int4* __restrict__ edges_g,
                              const int* __restrict__ row_start_g,
-                             const int2* __restrict__ col_edges_g,
-                             const int* __restrict__ col_start_g,
-                             const int* __restrict__ splits_g, DecodeArgs a,
-                             int cols_max, int edges_max) {
+                             const int* __restrict__ plan_g, DecodeArgs a, int slots_max) {
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int b = (int)cluster.block_rank();
   extern __shared__ __align__(16) unsigned char smem[];
   const int Z = a.Z, nc = a.nc, nr = a.nr, E = a.E;
-  float* totals = reinterpret_cast<float*>(smem);
-  float* msgs = reinterpret_cast<float*>(smem + align16((size_t)cols_max * Z * 4));
-  int2* red = reinterpret_cast<int2*>(reinterpret_cast<unsigned char*>(msgs) +
-                                      align16((size_t)edges_max * Z * 4));
-  int2* ced = red + E;
-  int* row_start = reinterpret_cast<int*>(ced + E);
-  int* col_start = row_start + nr + 1;
-  int* row_lo = col_start + nc + 1;
-  int* col_lo = row_lo + MAX_CLUSTER + 1;
-  int* votes = col_lo + MAX_CLUSTER + 1;
+  float* slots = reinterpret_cast<float*>(smem);  // totals, then messages
+  int4* red = reinterpret_cast<int4*>(smem + align16((size_t)slots_max * Z * 4));
+  int4* cols = red + E;  // (column, message offset, degree, 0)
+  int* row_start = reinterpret_cast<int*>(cols + nc);
+  int* head = row_start + nr + 1;  // rows_lo[MAX_CLUSTER + 1], cols_lo[...]
+  int* votes = head + 2 * (MAX_CLUSTER + 1);
 
   const int t = threadIdx.x, T = blockDim.x;
   const size_t cw = blockIdx.x / CS;
 
-  for (int i = t; i <= nr; i += T) row_start[i] = row_start_g[i];
-  for (int i = t; i <= nc; i += T) col_start[i] = col_start_g[i];
-  for (int i = t; i <= CS; i += T) {
-    row_lo[i] = splits_g[i];
-    col_lo[i] = splits_g[CS + 1 + i];
+  {
+    const int4* plan_cols = reinterpret_cast<const int4*>(plan_g + 2 * (MAX_CLUSTER + 1));
+    const int4* plan_edges = plan_cols + nc;
+    for (int i = t; i < E; i += T) red[i] = plan_edges[i];
+    for (int i = t; i < nc; i += T) cols[i] = plan_cols[i];
+    for (int i = t; i <= nr; i += T) row_start[i] = row_start_g[i];
+    for (int i = t; i < 2 * (MAX_CLUSTER + 1); i += T) head[i] = plan_g[i];
   }
   __syncthreads();
-  // the plans in cluster form: (owner << OWNER_SHIFT | offset in its block)
-  for (int i = t; i < E; i += T) {
-    const int4 ed = edges_g[i];
-    const int c = ed.x / Z;
-    int o = 0;
-    while (o + 1 < CS && c >= col_lo[o + 1]) ++o;
-    red[i] = make_int2((o << OWNER_SHIFT) | ((c - col_lo[o]) * Z), ed.y);
-    const int2 ce = col_edges_g[i];
-    const int slot = ce.x / Z;
-    int q = 0;
-    while (q + 1 < CS && slot >= row_start[row_lo[q + 1]]) ++q;
-    ced[i] = make_int2((q << OWNER_SHIFT) | ((slot - row_start[row_lo[q]]) * Z), ce.y);
-  }
-  const int c0 = col_lo[b], ncols = col_lo[b + 1] - c0;
-  const int r0 = row_lo[b], nrows = row_lo[b + 1] - r0;
-  const int e_lo = row_start[r0];
+  const int r0 = head[b], nrows = head[b + 1] - r0;
+  const int c0 = head[MAX_CLUSTER + 1 + b], ncols = head[MAX_CLUSTER + 2 + b] - c0;
 
   const float* src = llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z);
   {
     ItemWalk w(t, T, Z);
     for (int i = t; i < ncols * Z; i += T, w.next())
-      totals[i] = channel_llr(src, c0 + w.major, w.lane, a);
+      slots[i] = channel_llr(src, cols[c0 + w.major].x, w.lane, a);
   }
   cluster.sync();
 
@@ -482,15 +507,14 @@ ldpc_flooding_cluster_kernel(const float* __restrict__ llr, int8_t* __restrict__
         for (int i = t; i < nrows * Z; i += T, w.next()) {
           const int e0 = row_start[r0 + w.major];
           bad |= message_item<SUM_PRODUCT, BF16>(
-              ClusterTotals{totals}, msgs + (size_t)(e0 - e_lo) * Z + w.lane,
-              red + e0, row_start[r0 + w.major + 1] - e0, w.lane, Z, first,
-              alpha_t, a.offset_rule, a.beta);
+              ClusterEdges{slots, red + e0, Z}, row_start[r0 + w.major + 1] - e0, w.lane,
+              first, alpha_t, a.offset_rule, a.beta);
         }
       } else {
         for (int i = t; i < nrows * Z; i += T, w.next()) {
           const int e0 = row_start[r0 + w.major];
-          bad |= parity_item(ClusterTotals{totals}, red + e0,
-                             row_start[r0 + w.major + 1] - e0, w.lane, Z);
+          bad |= parity_item(ClusterEdges{slots, red + e0, Z},
+                             row_start[r0 + w.major + 1] - e0, w.lane);
         }
       }
     }
@@ -507,48 +531,36 @@ ldpc_flooding_cluster_kernel(const float* __restrict__ llr, int8_t* __restrict__
     }
     if (!update) break;
 
+    // Column phase: totals = llr + the column's messages in row order, all
+    // in this block's shared memory.
     {
       ItemWalk w(t, T, Z);
       for (int i = t; i < ncols * Z; i += T, w.next()) {
-        const int c = c0 + w.major;
-        const float v = channel_llr(src, c, w.lane, a);
-        const int k1 = col_start[c + 1];
-        int k = col_start[c];
-        int2 ce = ced[k];
-        float sum = *cluster.map_shared_rank(
-            msgs + ((ce.x & OFFSET_MASK) + unrot(w.lane, ce.y, Z)),
-            (unsigned)(ce.x >> OWNER_SHIFT));
+        const int4 col = cols[c0 + w.major];
+        const float v = channel_llr(src, col.x, w.lane, a);
+        const float* m = slots + col.y + w.lane;
+        float sum = m[0];
 #pragma unroll 4
-        for (++k; k < k1; ++k) {
-          ce = ced[k];
-          sum = __fadd_rn(sum, *cluster.map_shared_rank(
-                                   msgs + ((ce.x & OFFSET_MASK) + unrot(w.lane, ce.y, Z)),
-                                   (unsigned)(ce.x >> OWNER_SHIFT)));
-        }
-        totals[i] = __fadd_rn(v, sum);
+        for (int k = 1; k < col.z; ++k) sum = __fadd_rn(sum, m[k * Z]);
+        slots[i] = __fadd_rn(v, sum);
       }
     }
     cluster.sync();
   }
 
-  const int out_cols = min(ncols, max(a.out_cols - c0, 0));
-  int8_t* dst = bits + cw * (size_t)(a.out_cols * Z) + (size_t)c0 * Z;
-  for (int i = t; i < out_cols * Z; i += T) dst[i] = totals[i] < 0.0f;
+  int8_t* dst = bits + cw * (size_t)(a.out_cols * Z);
+  {
+    ItemWalk w(t, T, Z);
+    for (int i = t; i < ncols * Z; i += T, w.next()) {
+      const int c = cols[c0 + w.major].x;
+      if (c < a.out_cols) dst[c * Z + w.lane] = slots[i] < 0.0f;
+    }
+  }
   if (b == 0 && t == 0) {
     ok_out[cw] = ok;
     it_out[cw] = used;
   }
 }
-
-// An item's messages in the packed kernel's global scratch: a 32-bit offset
-// from the block's share, so that an item's up to MAX_DEG message addresses
-// are not 64-bit values held from the load to the store (at 64 registers
-// they spilled).
-struct GlobalMessages {
-  float* base;
-  int off;
-  __device__ __forceinline__ float& operator[](int i) const { return base[off + i]; }
-};
 
 // Walks the items t, t + T, t + 2T, ... of a (major, row, lane) range with
 // Z lanes per row and R rows per major index, without a division per step.
@@ -667,16 +679,17 @@ ldpc_flooding_packed_kernel(const float* __restrict__ llr, int8_t* __restrict__ 
           const int k = lv[w.major];
           const int e0 = row_start[w.row];
           const int off = (k * E + e0) * Z + w.lane;
-          const LocalTotals tk{totals + k * nc * Z};
+          const float* tk = totals + k * nc * Z;
+          const int deg = row_start[w.row + 1] - e0;
           unsigned par;
           if constexpr (ON_CHIP)
-            par = message_item<SUM_PRODUCT, BF16>(tk, msgs + off, red + e0,
-                                                  row_start[w.row + 1] - e0, w.lane, Z,
-                                                  first, alpha_t, a.offset_rule, a.beta);
+            par = message_item<SUM_PRODUCT, BF16>(LocalEdges{tk, msgs + off, red + e0, Z},
+                                                  deg, w.lane, first, alpha_t,
+                                                  a.offset_rule, a.beta);
           else
-            par = message_item<SUM_PRODUCT, BF16>(tk, GlobalMessages{msgs, off}, red + e0,
-                                                  row_start[w.row + 1] - e0, w.lane, Z,
-                                                  first, alpha_t, a.offset_rule, a.beta);
+            par = message_item<SUM_PRODUCT, BF16>(ScratchEdges{tk, msgs, off, red + e0, Z},
+                                                  deg, w.lane, first, alpha_t,
+                                                  a.offset_rule, a.beta);
           if (par & SIGN_BIT) fl[k] = 1;
           bad |= par;
         }
@@ -684,8 +697,8 @@ ldpc_flooding_packed_kernel(const float* __restrict__ llr, int8_t* __restrict__ 
         for (; w.major < nl; w.next()) {
           const int k = lv[w.major];
           const int e0 = row_start[w.row];
-          const unsigned par = parity_item(LocalTotals{totals + k * nc * Z}, red + e0,
-                                           row_start[w.row + 1] - e0, w.lane, Z);
+          const unsigned par = parity_item(LocalEdges{totals + k * nc * Z, msgs, red + e0, Z},
+                                           row_start[w.row + 1] - e0, w.lane);
           if (par & SIGN_BIT) fl[k] = 1;
           bad |= par;
         }
@@ -757,14 +770,13 @@ extern "C" int ldpc_flooding_max_shared_bytes() { return max_shared_bytes_optin(
 // Dynamic shared memory of one block, by `layout`: for P = 1
 // FLOODING_SHARED_BYTES (1: one block per codeword) or
 // FLOODING_CLUSTER_SHARED_BYTES for a cluster of `layout` blocks per
-// codeword (2 to MAX_CLUSTER; `cols_max`, `edges_max`: the most columns and
-// edges a block of it owns); for P > 1 FLOODING_PACKED_SHARED_BYTES with the
-// messages on chip (layout 1) or in a global scratch (layout 0).
+// codeword (2 to MAX_CLUSTER; `slots_max`: the most Z-lane slots, totals
+// and messages, a block of it holds); for P > 1 FLOODING_PACKED_SHARED_BYTES
+// with the messages on chip (layout 1) or in a global scratch (layout 0).
 extern "C" int ldpc_flooding_shared_bytes(int Z, int nc, int nr, int E, int P,
-                                          int layout, int cols_max, int edges_max) {
+                                          int layout, int slots_max) {
   if (P > 1) return (int)FLOODING_PACKED_SHARED_BYTES(Z, nc, nr, E, P, layout == 1);
-  if (layout >= 2)
-    return (int)FLOODING_CLUSTER_SHARED_BYTES(Z, nc, nr, E, cols_max, edges_max);
+  if (layout >= 2) return (int)FLOODING_CLUSTER_SHARED_BYTES(Z, nc, nr, E, slots_max);
   return (int)FLOODING_SHARED_BYTES(Z, nc, nr, E);
 }
 
@@ -790,14 +802,14 @@ struct Plans {
   const int* row_start;
   const int2* col_edges;
   const int* col_start;
-  const int* splits;
+  const int* cluster_plan;
 };
 
 template <bool SUM_PRODUCT, bool BF16>
 static cudaError_t launch(const void* llr, void* bits, void* ok, void* iters,
                           void* c2v, const Plans& g, int ncw, int P, int layout,
-                          int threads, int smem_bytes, int cols_max,
-                          int edges_max, const DecodeArgs& a, cudaStream_t s) {
+                          int threads, int smem_bytes, int slots_max,
+                          const DecodeArgs& a, cudaStream_t s) {
   const float* x = (const float*)llr;
   int8_t* y = (int8_t*)bits;
   if (P > 1) {
@@ -824,9 +836,8 @@ static cudaError_t launch(const void* llr, void* bits, void* ok, void* iters,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(&cfg, ldpc_flooding_cluster_kernel<SUM_PRODUCT, BF16>,
-                              x, y, (int*)ok, (int*)iters, g.edges, g.row_start,
-                              g.col_edges, g.col_start, g.splits, a, cols_max,
-                              edges_max);
+                              x, y, (int*)ok, (int*)iters, g.row_start, g.cluster_plan,
+                              a, slots_max);
   } else {
     ldpc_flooding_kernel<SUM_PRODUCT, BF16><<<ncw, threads, smem_bytes, s>>>(
         x, y, (int*)ok, (int*)iters, g.edges, g.row_start, g.col_edges,
@@ -853,11 +864,10 @@ static bool valid_shape(int Z, int P, int layout, int threads) {
 extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
                                           int codewords_per_block, int Z, int nc,
                                           int nr, int E, int layout, int threads,
-                                          int cols_max, int edges_max) {
+                                          int slots_max) {
   const int P = codewords_per_block;
   if (!valid_shape(Z, P, layout, threads)) return -(int)cudaErrorInvalidValue;
-  const int smem_bytes =
-      ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, cols_max, edges_max);
+  const int smem_bytes = ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, slots_max);
   const void* kernel = select_kernel(rule, bf16_messages, P, layout);
   int n = 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -875,9 +885,9 @@ extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
 // is 0 (min-sum), 1 (offset-min-sum) or 2 (sum-product); `bf16_messages`
 // rounds the messages to bfloat16 where they are read back (min-sum family
 // only).  `codewords_per_block` P = 1 runs one codeword per block (`layout`
-// 1) or per cluster of `layout` blocks (2 to MAX_CLUSTER, split by `splits`:
-// row_lo[0..layout], col_lo[0..layout]; `cols_max`, `edges_max` the most
-// columns and edges of a block), messages in shared memory, `c2v` null.
+// 1) or per cluster of `layout` blocks (2 to MAX_CLUSTER, shared by
+// `cluster_plan`, ops/decoder_cuda.py::_cluster_plan; `slots_max` the most
+// slots a block holds), messages in shared memory, `c2v` null.
 // P > 1 runs ceil(ncw / P) blocks of the packed kernel, messages in shared
 // memory (`layout` 1, `c2v` null) or in the scratch `c2v` (`layout` 0: P*E*Z
 // floats per block).  `threads` threads per block.  Does not synchronise and
@@ -885,11 +895,11 @@ extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
 extern "C" int ldpc_flooding_decode(
     const void* llr, void* bits, void* ok, void* iters, void* c2v,
     const void* edges, const void* row_start, const void* col_edges,
-    const void* col_start, const void* splits, int ncw, int Z, int nc, int nr,
+    const void* col_start, const void* cluster_plan, int ncw, int Z, int nc, int nr,
     int E, int out_cols, int d_input, int fill_lo, int fill_hi, int iterations,
     int early_termination, int rule, int bf16_messages,
-    int codewords_per_block, int layout, int threads, int cols_max,
-    int edges_max, float alpha, float beta, float alpha0, int n0, void* stream) {
+    int codewords_per_block, int layout, int threads, int slots_max,
+    float alpha, float beta, float alpha0, int n0, void* stream) {
   const int P = codewords_per_block;
   if (ncw < 1 || !valid_shape(Z, P, layout, threads)) return (int)cudaErrorInvalidValue;
   if (rule < RULE_MIN_SUM || rule > RULE_SUM_PRODUCT) return (int)cudaErrorInvalidValue;
@@ -902,24 +912,23 @@ extern "C" int ldpc_flooding_decode(
   a.offset_rule = rule == RULE_OFFSET_MIN_SUM;
   a.alpha = alpha; a.beta = beta; a.alpha0 = alpha0; a.n0 = n0;
   const void* kernel = select_kernel(rule, bf16_messages, P, layout);
-  const int smem_bytes =
-      ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, cols_max, edges_max);
+  const int smem_bytes = ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, slots_max);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const Plans g = {(const int4*)edges, (const int*)row_start,
                    (const int2*)col_edges, (const int*)col_start,
-                   (const int*)splits};
+                   (const int*)cluster_plan};
   const cudaStream_t st = (cudaStream_t)stream;
   if (rule == RULE_SUM_PRODUCT)
     err = launch<true, false>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,
-                              smem_bytes, cols_max, edges_max, a, st);
+                              smem_bytes, slots_max, a, st);
   else if (bf16_messages)
     err = launch<false, true>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,
-                              smem_bytes, cols_max, edges_max, a, st);
+                              smem_bytes, slots_max, a, st);
   else
     err = launch<false, false>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,
-                               smem_bytes, cols_max, edges_max, a, st);
+                               smem_bytes, slots_max, a, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -77,11 +77,10 @@ DECODE_ARGTYPES = (
     + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
 # ``ldpc_flooding_decode``: the same with the column plan (col_edges,
-# col_start) and the cluster split (splits) after row_start, and the layout,
-# the block size (threads) and the cluster's cols_max and edges_max after
-# codewords_per_block.
+# col_start) and the cluster plan after row_start, and the layout, the block
+# size (threads) and the cluster's slots_max after codewords_per_block.
 FLOODING_DECODE_ARGTYPES = (
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 18
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 17
     + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
 # Argument types of each kernel library's entries (``{name}_{entry}``).
@@ -97,11 +96,10 @@ ARGTYPES = {
     "ldpc_flooding": {
         "decode": FLOODING_DECODE_ARGTYPES, "max_degree": [], "max_z": [],
         "max_shared_bytes": [],
-        # Z, nc, nr, E, P, layout, cols_max, edges_max
-        "shared_bytes": [ctypes.c_int] * 8,
-        # rule, bf16_messages, P, Z, nc, nr, E, layout, threads, cols_max,
-        # edges_max
-        "blocks_per_sm": [ctypes.c_int] * 11,
+        # Z, nc, nr, E, P, layout, slots_max
+        "shared_bytes": [ctypes.c_int] * 7,
+        # rule, bf16_messages, P, Z, nc, nr, E, layout, threads, slots_max
+        "blocks_per_sm": [ctypes.c_int] * 10,
     },
 }
 
@@ -206,13 +204,48 @@ def flooding_on_chip(params: LDPCParams) -> bool:
                         len(params.edges[0])) <= MAX_BLOCK_SHARED_BYTES
 
 
+# Where a block of a cluster keeps a column's messages and its total, in the
+# plan the cluster kernel takes (OWNER_SHIFT / OFFSET_MASK in
+# csrc/ldpc_flooding.cu): the owning block's rank above OWNER_SHIFT, the
+# offset in its shared memory below.
+OWNER_SHIFT = 24
+# The cluster plan's header: rows_lo and cols_lo, MAX_CLUSTER + 1 words each
+# whatever the cluster's size; then the column table and the edge table,
+# CLUSTER_TABLE_WORDS words an entry.
+CLUSTER_TABLE_WORDS = 4
+
+
+def _cluster_fixed_bytes(nc: int, nr: int, E: int) -> int:
+    """The part of FLOODING_CLUSTER_SHARED_BYTES that does not depend on the
+    split: the edge table and the column table (16 bytes an entry), the row
+    offsets, the header and the vote words."""
+    return 16 * E + 16 * nc + 4 * (nr + 1) + 64
+
+
+def _cluster_slots_cap(params: LDPCParams) -> int:
+    """The most Z-lane slots (a column's total, or one edge's messages) that
+    one block of a cluster holds within MAX_BLOCK_SHARED_BYTES."""
+    Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    room = MAX_BLOCK_SHARED_BYTES - _cluster_fixed_bytes(nc, nr, E)
+    slots = room // (4 * Z)
+    return slots if _align16(slots * Z * 4) <= room else slots - 1
+
+
 @functools.lru_cache(maxsize=None)
 def _cluster_split(params: LDPCParams, size: int) -> tuple:
-    """How a cluster of ``size`` blocks shares one codeword: contiguous base
-    rows of about E/size edges each (their messages) and contiguous columns
-    of about num_cols/size each (their totals).  Returns (splits int32
-    [row_lo[0..size], col_lo[0..size]], most columns, most edges of a
-    block)."""
+    """How a cluster of ``size`` blocks shares one codeword.
+
+    Rows: contiguous base rows of about E/size edges each (the message
+    phase's work).  Columns: each column's total and all of its edges'
+    messages live in one block, its owner, so that the column phase reads
+    only its own block's shared memory; the message phase reads a column's
+    total and an edge's message, and stores the new message, in the owner.
+    A column goes to the block that holds most of its edges (ties to the
+    block with the fewest slots so far), then columns move off any block
+    above ``_cluster_slots_cap``, each time the move that adds the fewest
+    remote edges (an edge whose row and column are in different blocks) per
+    slot moved.  Returns (row_lo [size+1], owner per column, most slots of
+    a block)."""
     _, row_start, _ = _graph_plan(params, tuple(range(params.num_rows)))
     E, nr, nc = int(row_start[-1]), params.num_rows, params.num_cols
     row_lo = [0]
@@ -223,25 +256,87 @@ def _cluster_split(params: LDPCParams, size: int) -> tuple:
             r -= 1
         row_lo.append(min(max(r, row_lo[-1] + 1), nr - (size - q)))
     row_lo.append(nr)
-    col_lo = [round(q * nc / size) for q in range(size + 1)]
-    edges = [int(row_start[row_lo[q + 1]] - row_start[row_lo[q]]) for q in range(size)]
-    return (np.asarray(row_lo + col_lo, dtype=np.int32),
-            max(np.diff(col_lo).tolist()), max(edges))
+    col_edges, col_start = _column_plan(params)
+    block_of_row = np.searchsorted(np.asarray(row_lo[1:]), np.arange(nr), side="right")
+    row_of_edge = np.repeat(np.arange(nr), np.diff(row_start))
+    # per column: its edges in each block
+    held = np.zeros((nc, size), dtype=np.int64)
+    for c in range(nc):
+        slots = col_edges[col_start[c]:col_start[c + 1], 0] // params.Z_c
+        held[c] = np.bincount(block_of_row[row_of_edge[slots]], minlength=size)
+    units = held.sum(1) + 1  # the total and one message per edge
+    owner = np.zeros(nc, dtype=np.int64)
+    load = np.zeros(size, dtype=np.int64)
+    for c in sorted(range(nc), key=lambda c: (-units[c], c)):
+        owner[c] = min(range(size), key=lambda q: (-held[c, q], load[q], q))
+        load[owner[c]] += units[c]
+    cap = _cluster_slots_cap(params)
+    while load.max() > cap:
+        src = int(load.argmax())
+        moves = [((held[c, src] - held[c, q]) / units[c], -units[c], c, q)
+                 for c in np.flatnonzero(owner == src) for q in range(size)
+                 if q != src and load[q] + units[c] <= cap]
+        if not moves:
+            break  # this size does not fit; the layout rule takes a larger one
+        _, _, c, q = min(moves)
+        owner[c] = q
+        load[src] -= units[c]
+        load[q] += units[c]
+    return np.asarray(row_lo, dtype=np.int32), owner.astype(np.int32), int(load.max())
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_plan(params: LDPCParams, size: int) -> np.ndarray:
+    """The int32 plan the cluster kernel takes (``_cluster_split``'s split):
+
+    - rows_lo [MAX_CLUSTER + 1], cols_lo [MAX_CLUSTER + 1]: each block's
+      base rows and its range of the column table (past the cluster's size,
+      nr and nc);
+    - the column table [nc, 4], block by block, a block's columns ascending:
+      (column, message offset, degree, 0), the offsets in Z-lane floats of
+      the owner's shared memory, where its totals come first (the column's
+      at its position in the table times Z) and then its columns' messages,
+      one Z-lane slot per edge in ascending row order;
+    - the edge table [E, 4] in row order: (owner << OWNER_SHIFT | offset of
+      the column's total, shift, offset of the edge's message, 0)."""
+    row_lo, owner, _ = _cluster_split(params, size)
+    Z, nc, nr = params.Z_c, params.num_cols, params.num_rows
+    edges, _, _ = _graph_plan(params, tuple(range(nr)))
+    col_edges, col_start = _column_plan(params)
+    head = np.zeros(2 * (MAX_CLUSTER + 1), dtype=np.int64)
+    head[:size + 1] = row_lo
+    head[size + 1:MAX_CLUSTER + 1] = nr
+    cols = np.zeros((nc, CLUSTER_TABLE_WORDS), dtype=np.int64)
+    edge_tab = np.zeros((len(edges), CLUSTER_TABLE_WORDS), dtype=np.int64)
+    j = 0
+    for q in range(size):
+        head[MAX_CLUSTER + 1 + q] = j
+        mine = np.flatnonzero(owner == q)
+        msg = len(mine)  # the block's first message slot: after its totals
+        for k, c in enumerate(mine):
+            deg = int(col_start[c + 1] - col_start[c])
+            cols[j] = (c, msg * Z, deg, 0)
+            for i, slot in enumerate(col_edges[col_start[c]:col_start[c + 1], 0] // Z):
+                edge_tab[slot] = ((q << OWNER_SHIFT) | k * Z, edges[slot, 1], (msg + i) * Z, 0)
+            msg += deg
+            j += 1
+    head[MAX_CLUSTER + 1 + size:] = nc
+    return np.concatenate([head, cols.ravel(), edge_tab.ravel()]).astype(np.int32)
 
 
 def flooding_shared_bytes(params: LDPCParams, layout: int, P: int = 1) -> int:
     """Dynamic shared memory of one block of a flooding kernel in
     ``layout``: one codeword per block, FLOODING_SHARED_BYTES, or for a
-    cluster FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu; P > 1,
+    cluster FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu (the
+    most slots a block of it holds, then the tables); P > 1,
     FLOODING_PACKED_SHARED_BYTES with the messages on chip (layout 1) or in
     a scratch (layout 0)."""
     Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
     if P > 1:
         return shared_bytes("flooding", Z, nc, nr, E, P, on_chip=layout == LAYOUT_ON_CHIP)
     if layout >= 2:
-        _, cols_max, edges_max = _cluster_split(params, layout)
-        return (_align16(cols_max * Z * 4) + _align16(edges_max * Z * 4) + E * 16
-                + (nr + nc + 2) * 4 + 64)
+        slots = _cluster_split(params, layout)[2]
+        return _align16(slots * Z * 4) + _cluster_fixed_bytes(nc, nr, E)
     return shared_bytes("flooding", Z, nc, nr, E)
 
 
@@ -420,17 +515,17 @@ def _graph_device(params: LDPCParams, row_seq, device: torch.device):
 @functools.lru_cache(maxsize=None)
 def _flooding_device(params: LDPCParams, layout: int, device: torch.device):
     """Device copies of what the flooding kernels take beside the row plan:
-    the column plan and the cluster split (a placeholder word without a
+    the column plan and the cluster plan (a placeholder word without a
     cluster)."""
-    splits = _cluster_split(params, layout)[0] if layout >= 2 else np.zeros(1, np.int32)
+    plan = _cluster_plan(params, layout) if layout >= 2 else np.zeros(1, np.int32)
     return tuple(torch.from_numpy(a).to(device).contiguous()
-                 for a in (*_column_plan(params), splits))
+                 for a in (*_column_plan(params), plan))
 
 
-def _cluster_sizes(params: LDPCParams, layout: int) -> tuple:
-    """(most columns, most edges) of a block of the layout's cluster, or
-    (0, 0) without one."""
-    return _cluster_split(params, layout)[1:] if layout >= 2 else (0, 0)
+def _cluster_slots(params: LDPCParams, layout: int) -> int:
+    """The most slots a block of the layout's cluster holds, or 0 without
+    one."""
+    return _cluster_split(params, layout)[2] if layout >= 2 else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -487,7 +582,7 @@ def blocks_per_sm(params: LDPCParams, schedule: str = "layered",
     if schedule == "flooding":
         shape = launch_shape(params, n, schedule, codewords_per_block,
                              _sm_count(torch.device("cuda", torch.cuda.current_device())))
-        args += [shape["layout"], shape["threads"], *_cluster_sizes(params, shape["layout"])]
+        args += [shape["layout"], shape["threads"], _cluster_slots(params, shape["layout"])]
     n = getattr(_library(name), name + "_blocks_per_sm")(*args)
     if n < 0:
         raise RuntimeError(f"{name}_blocks_per_sm failed: CUDA error {-n}")
@@ -716,8 +811,8 @@ def decode(
     if _threads and flooding:
         shape["threads"] = int(_threads)  # the kernel checks it
     if flooding:
-        cluster = _cluster_sizes(params, layout)
-        need = lib.ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout, *cluster)
+        need = lib.ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout,
+                                              _cluster_slots(params, layout))
         assert need == flooding_shared_bytes(params, layout, P)
     else:
         need = lib.ldpc_layered_shared_bytes(Z, nc, nr, E, P)
@@ -747,7 +842,7 @@ def decode(
         assert (scratch is not None) == (layout == LAYOUT_SCRATCH and (P > 1 or not flooding))
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
-        block = ([P, layout, shape["threads"], *_cluster_sizes(params, layout)]
+        block = ([P, layout, shape["threads"], _cluster_slots(params, layout)]
                  if flooding else [P])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream

@@ -10,20 +10,24 @@ in, 'sys' out) at 256 codewords (one call of the sweep) and at 8,192 (a
 step of the ``snr_vs_a_a8000_b8192`` benchmark cell).  The variants:
 
 - ``kernel``: the kernel as it is;
-- ``local_reads``: every read of distributed shared memory (DSMEM) made a
-  read of the block's own shared memory at the same offset;
-- ``local_totals``: the same for the message phase's reads of the totals
-  only;
-- ``local_columns``: the column phase over the block's own messages only
-  (the other blocks' edges of its columns skipped);
-- ``own_rank_plain``: the block's own totals read through a plain shared
-  pointer, the other ranks' through the cluster mapping (a kernel in its own
-  right, whose results must equal the kernel's);
+- ``local_reads``: every access to distributed shared memory (DSMEM) made
+  an access to the block's own shared memory at the same offset (the
+  message phase's reads of the totals and of the messages, and its stores
+  of the messages);
+- ``local_totals``: the same for the reads of the totals only;
+- ``local_messages``: the same for the messages' reads and stores only;
+- ``own_rank_plain``: the block's own column owner reached through a plain
+  shared pointer, the other ranks through the cluster mapping (a kernel in
+  its own right, whose results must equal the kernel's);
 - ``no_vote``: no block vote and no DSMEM store of it (every codeword runs
   on);
 - ``no_second_sync``: no ``cluster.sync()`` after the column phase (the
-  next message phase races the column phase's totals).
+  next message phase races the column phase).
 
+The column phase reads only its own block's shared memory (each column's
+messages live with its total), so no variant takes its reads apart; the
+form before that, whose column phase read other blocks' messages, was taken
+apart by this tool with ``local_columns`` in their place (PERF.md §6).
 Every variant but ``own_rank_plain`` computes wrong bits; only their times
 mean anything, so every variant is timed run to the budget (the same work
 whatever the bits), and those that compute the kernel's bits also with early
@@ -59,34 +63,17 @@ HEADER = layered_probe.HEADER
 FAMILY = "flooding"
 
 # (file, text in the source, its replacement, occurrences)
-_TOTALS_READ = (
-    "    return *cg::this_cluster().map_shared_rank(t + ((x & OFFSET_MASK) + idx),\n"
-    "                                               (unsigned)(x >> OWNER_SHIFT));\n")
-_LOCAL_TOTALS = (SOURCE, _TOTALS_READ, "    return t[(x & OFFSET_MASK) + idx];\n", 1)
-_OWN_RANK_PLAIN = (SOURCE, _TOTALS_READ,
-                   "    const unsigned r = (unsigned)(x >> OWNER_SHIFT);\n"
-                   "    const float* p = t + ((x & OFFSET_MASK) + idx);\n"
+_OWNER = ("    return cg::this_cluster().map_shared_rank(slots, "
+          "(unsigned)(ed.x >> OWNER_SHIFT));\n")
+_LOCAL_READS = (SOURCE, _OWNER, "    return slots;\n", 1)
+_LOCAL_TOTALS = (SOURCE, "    return owner(ed)[(ed.x & OFFSET_MASK) + rot(z, ed.y, Z)];\n",
+                 "    return slots[(ed.x & OFFSET_MASK) + rot(z, ed.y, Z)];\n", 1)
+_LOCAL_MESSAGES = (SOURCE, "    return owner(ed)[ed.z + rot(z, ed.y, Z)];\n",
+                   "    return slots[ed.z + rot(z, ed.y, Z)];\n", 1)
+_OWN_RANK_PLAIN = (SOURCE, _OWNER,
+                   "    const unsigned r = (unsigned)(ed.x >> OWNER_SHIFT);\n"
                    "    return r == cg::this_cluster().block_rank()\n"
-                   "               ? *p : *cg::this_cluster().map_shared_rank(p, r);\n", 1)
-_FIRST_MSG = ("        float sum = *cluster.map_shared_rank(\n"
-              "            msgs + ((ce.x & OFFSET_MASK) + unrot(w.lane, ce.y, Z)),\n"
-              "            (unsigned)(ce.x >> OWNER_SHIFT));\n")
-_NEXT_MSG = ("          sum = __fadd_rn(sum, *cluster.map_shared_rank(\n"
-             "                                   msgs + ((ce.x & OFFSET_MASK) + "
-             "unrot(w.lane, ce.y, Z)),\n"
-             "                                   (unsigned)(ce.x >> OWNER_SHIFT)));\n")
-_LOCAL_FIRST = (SOURCE, _FIRST_MSG,
-                "        float sum = msgs[(ce.x & OFFSET_MASK) + unrot(w.lane, ce.y, Z)];\n", 1)
-_LOCAL_NEXT = (SOURCE, _NEXT_MSG,
-               "          sum = __fadd_rn(sum, msgs[(ce.x & OFFSET_MASK) + "
-               "unrot(w.lane, ce.y, Z)]);\n", 1)
-_OWN_FIRST = (SOURCE, _FIRST_MSG,
-              "        float sum = (ce.x >> OWNER_SHIFT) == b\n"
-              "            ? msgs[(ce.x & OFFSET_MASK) + unrot(w.lane, ce.y, Z)] : 0.0f;\n", 1)
-_OWN_NEXT = (SOURCE, _NEXT_MSG,
-             "          if ((ce.x >> OWNER_SHIFT) == b)\n"
-             "            sum = __fadd_rn(sum, msgs[(ce.x & OFFSET_MASK) + "
-             "unrot(w.lane, ce.y, Z)]);\n", 1)
+                   "               ? slots : cg::this_cluster().map_shared_rank(slots, r);\n", 1)
 _NO_VOTE = (SOURCE,
             "    const int vote = __syncthreads_or(bad & SIGN_BIT) ? 1 : 0;\n"
             "    if (t < CS) *cluster.map_shared_rank(votes + b, (unsigned)t) = vote;\n",
@@ -94,14 +81,14 @@ _NO_VOTE = (SOURCE,
 _NO_VOTE_READ = (SOURCE,
                  "    int any_bad = 0;\n    for (int q = 0; q < CS; ++q) any_bad |= votes[q];\n",
                  "    const int any_bad = 1;\n", 1)
-_NO_SECOND_SYNC = (SOURCE, "        totals[i] = __fadd_rn(v, sum);\n      }\n    }\n"
+_NO_SECOND_SYNC = (SOURCE, "        slots[i] = __fadd_rn(v, sum);\n      }\n    }\n"
                    "    cluster.sync();\n  }\n",
-                   "        totals[i] = __fadd_rn(v, sum);\n      }\n    }\n  }\n", 1)
+                   "        slots[i] = __fadd_rn(v, sum);\n      }\n    }\n  }\n", 1)
 VARIANTS = {
     "kernel": (),
-    "local_reads": (_LOCAL_TOTALS, _LOCAL_FIRST, _LOCAL_NEXT),
+    "local_reads": (_LOCAL_READS,),
     "local_totals": (_LOCAL_TOTALS,),
-    "local_columns": (_OWN_FIRST, _OWN_NEXT),
+    "local_messages": (_LOCAL_MESSAGES,),
     "own_rank_plain": (_OWN_RANK_PLAIN,),
     "no_vote": (_NO_VOTE, _NO_VOTE_READ),
     "no_second_sync": (_NO_SECOND_SYNC,),

@@ -16,6 +16,7 @@ from ldpc_3gpp_tpu_torch.tools import flooding_probe, layered_probe, small_z
 P2 = dict(BG=2, A=3842, G=11526, Q_m=2)  # Z=208, the default decoder's step
 BG1_Z384 = dict(BG=1, A=8424, G=25272, Q_m=2)
 BG2_Z52 = dict(BG=2, A=400, G=1200, Q_m=2)
+SNR_VS_A_A8000 = dict(BG=1, A=8000, G=24000, Q_m=2)  # Z=384, 424 fillers
 
 
 def _source():
@@ -86,39 +87,217 @@ def test_shared_bytes_and_layout_rule_follow_the_cuda_source():
         assert t_cuda.flooding_shared_bytes(pt, layout) <= t_cuda.MAX_BLOCK_SHARED_BYTES
 
 
+# Every lifting size at which a codeword takes a cluster (one block holds up
+# to BG1 Z=144 and BG2 Z=224).
+CLUSTER_SHAPES = [(1, Z) for Z in ALL_LIFTING_SIZES if 160 <= Z <= 384] + [
+    (2, Z) for Z in ALL_LIFTING_SIZES if 240 <= Z <= 384]
+
+
+def _cluster_params(bg, Z):
+    # BG1 Z=384 as snr_vs_a runs it at A=8000 (the benchmark cell's code)
+    return TParams(**SNR_VS_A_A8000) if (bg, Z) == (1, 384) else small_z.params_for_z(bg, Z)
+
+
+def _cluster_stats(pt, size):
+    """Per block: rows' edges, owned columns, the column phase's edges, the
+    slots held; and the remote edges (row and column in different blocks)."""
+    row_lo, owner, slots_max = t_cuda._cluster_split(pt, size)
+    Z, nr = pt.Z_c, pt.num_rows
+    edges, row_start, _ = t_cuda._graph_plan(pt, tuple(range(nr)))
+    cols = edges[:, 0] // Z
+    block_of_edge = np.searchsorted(row_lo[1:], np.repeat(np.arange(nr), np.diff(row_start)),
+                                    side="right")
+    col_edges = [int((owner[cols] == q).sum()) for q in range(size)]
+    ncols = [int((owner == q).sum()) for q in range(size)]
+    return dict(row_lo=row_lo, owner=owner, slots_max=slots_max,
+                row_edges=[int(row_start[row_lo[q + 1]] - row_start[row_lo[q]])
+                           for q in range(size)],
+                ncols=ncols, col_edges=col_edges,
+                slots=[n + e for n, e in zip(ncols, col_edges)],
+                remote=int((owner[cols] != block_of_edge).sum()))
+
+
 def test_cluster_split_and_its_shared_bytes():
     """A cluster's blocks own contiguous rows (about E/size edges each) and
-    columns that cover the code once; the wrapper's bytes equal the source's
+    every column exactly once, its total and all its edges' messages; no
+    block of the chosen layout exceeds a block's shared memory at any
+    cluster shape; the wrapper's bytes equal the source's
     FLOODING_CLUSTER_SHARED_BYTES, and the rule takes the fewest blocks that
-    fit where one block does not hold the messages."""
+    fit.  At BG1 Z=384 (snr_vs_a's A=8000) no block sums more than 150 of
+    the 316 edges in the column phase, which reads no other block's shared
+    memory, and at most 158 edges have their row and their column in
+    different blocks (182 with contiguous thirds of the columns)."""
     m = re.search(r"#define FLOODING_CLUSTER_SHARED_BYTES\((.*?)\)(.*?)\n(?:#|\n)",
                   _source(), re.S)
     names = [a.strip() for a in m.group(1).split(",")]
     body = m.group(2).replace("\\\n", " ").replace("(size_t)", "")
     align16 = {"align16": lambda n: -(-n // 16) * 16}
     assert f"#define MAX_CLUSTER {t_cuda.MAX_CLUSTER}" in _source()
-    for fields in (P2, BG1_Z384, BG2_Z52):
-        pt = TParams(**fields)
-        Z, nc, nr, E = pt.Z_c, pt.num_cols, pt.num_rows, len(pt.edges[0])
+    assert f"#define OWNER_SHIFT {t_cuda.OWNER_SHIFT}" in _source()
+    for bg, Z in CLUSTER_SHAPES:
+        pt = _cluster_params(bg, Z)
+        nc, nr, E = pt.num_cols, pt.num_rows, len(pt.edges[0])
         _, row_start, _ = t_cuda._graph_plan(pt, tuple(range(nr)))
-        for size in range(2, t_cuda.MAX_CLUSTER + 1):
-            splits, cols_max, edges_max = t_cuda._cluster_split(pt, size)
-            row_lo, col_lo = splits[:size + 1], splits[size + 1:]
-            assert splits.dtype == np.int32 and len(splits) == 2 * (size + 1)
-            assert row_lo[0] == 0 and row_lo[-1] == nr and (np.diff(row_lo) > 0).all()
-            assert col_lo[0] == 0 and col_lo[-1] == nc and (np.diff(col_lo) > 0).all()
-            edges = np.diff(row_start[row_lo])
-            assert edges_max == edges.max() and cols_max == np.diff(col_lo).max()
-            assert edges.max() - edges.min() <= 2 * 19  # within two of the densest rows
-            want = eval(body, align16, dict(zip(names, (Z, nc, nr, E, cols_max, edges_max))))  # noqa: S307
-            assert t_cuda.flooding_shared_bytes(pt, size) == want
+        assert not t_cuda.flooding_on_chip(pt)
         layout = t_cuda.flooding_layout(pt)
-        if t_cuda.flooding_on_chip(pt):
-            assert layout == t_cuda.LAYOUT_ON_CHIP
-        else:
-            assert layout >= 2
-            assert t_cuda.flooding_shared_bytes(pt, layout) <= t_cuda.MAX_BLOCK_SHARED_BYTES
-            assert t_cuda.flooding_shared_bytes(pt, layout - 1) > t_cuda.MAX_BLOCK_SHARED_BYTES
+        assert 2 <= layout <= t_cuda.MAX_CLUSTER
+        for size in range(2, t_cuda.MAX_CLUSTER + 1):
+            st = _cluster_stats(pt, size)
+            row_lo, owner = st["row_lo"], st["owner"]
+            assert row_lo.dtype == np.int32 and len(row_lo) == size + 1
+            assert row_lo[0] == 0 and row_lo[-1] == nr and (np.diff(row_lo) > 0).all()
+            # every row and every column has exactly one owner
+            assert owner.shape == (nc,) and set(owner.tolist()) <= set(range(size))
+            assert sum(st["ncols"]) == nc and sum(st["col_edges"]) == E
+            assert max(st["row_edges"]) - min(st["row_edges"]) <= 2 * 19
+            assert st["slots_max"] == max(st["slots"])
+            want = eval(body, align16, dict(zip(names, (Z, nc, nr, E, st["slots_max"]))))  # noqa: S307
+            assert t_cuda.flooding_shared_bytes(pt, size) == want
+            if size == layout:
+                assert max(st["slots"]) <= t_cuda._cluster_slots_cap(pt)
+                assert want <= t_cuda.MAX_BLOCK_SHARED_BYTES, (bg, Z, size, want)
+        assert t_cuda.flooding_shared_bytes(pt, layout) <= t_cuda.MAX_BLOCK_SHARED_BYTES
+        assert t_cuda.flooding_shared_bytes(pt, layout - 1) > t_cuda.MAX_BLOCK_SHARED_BYTES
+    # the layouts as before: 2 blocks up to BG1 Z=288 and BG2 Z=384, 3 above
+    assert {(bg, Z): t_cuda.flooding_layout(_cluster_params(bg, Z)) for bg, Z in CLUSTER_SHAPES
+            } == {(bg, Z): 3 if (bg, Z) >= (1, 320) and bg == 1 else 2
+                  for bg, Z in CLUSTER_SHAPES}
+    st = _cluster_stats(TParams(**SNR_VS_A_A8000), 3)
+    assert max(st["col_edges"]) <= 150 and st["remote"] <= 158, st
+    assert t_cuda.flooding_shared_bytes(TParams(**SNR_VS_A_A8000), 3) <= 232_448
+
+
+def test_cluster_plan_encodes_the_split():
+    """The plan the cluster kernel takes: the header (rows_lo, cols_lo), the
+    column table (column, message offset, degree) block by block, and the
+    edge table (owner << OWNER_SHIFT | total's offset, shift, message's
+    offset) in row order; every total and message slot lies in its owner's
+    slots, and each message slot belongs to exactly one edge."""
+    for bg, Z in ((1, 384), (1, 160), (2, 240), (2, 384)):
+        pt = _cluster_params(bg, Z)
+        nc, nr, E = pt.num_cols, pt.num_rows, len(pt.edges[0])
+        edges, row_start, _ = t_cuda._graph_plan(pt, tuple(range(nr)))
+        col_edges, col_start = t_cuda._column_plan(pt)
+        size = t_cuda.flooding_layout(pt)
+        row_lo, owner, slots_max = t_cuda._cluster_split(pt, size)
+        plan = t_cuda._cluster_plan(pt, size)
+        H, W = t_cuda.MAX_CLUSTER + 1, t_cuda.CLUSTER_TABLE_WORDS
+        assert plan.dtype == np.int32 and len(plan) == 2 * H + W * (nc + E)
+        np.testing.assert_array_equal(plan[:size + 1], row_lo)
+        assert (plan[size + 1:H] == nr).all() and (plan[H + size:2 * H] == nc).all()
+        cols_lo = plan[H:H + size + 1]
+        table = plan[2 * H:2 * H + W * nc].reshape(nc, W)
+        etab = plan[2 * H + W * nc:].reshape(E, W)
+        used = {}
+        for q in range(size):
+            mine = table[cols_lo[q]:cols_lo[q + 1]]
+            np.testing.assert_array_equal(mine[:, 0], np.flatnonzero(owner == q))
+            held = len(mine) + mine[:, 2].sum()
+            assert held <= slots_max
+            offset = len(mine)
+            for j, (c, moff, deg, pad) in enumerate(mine):
+                assert pad == 0 and moff == offset * Z and deg == col_start[c + 1] - col_start[c]
+                slots = col_edges[col_start[c]:col_start[c + 1], 0] // Z  # ascending rows
+                for k, e in enumerate(slots):
+                    x, shift, mo, pad = etab[e]
+                    assert x >> t_cuda.OWNER_SHIFT == q and x & 0xFFFFFF == j * Z
+                    assert shift == edges[e, 1] and mo == (offset + k) * Z and pad == 0
+                    used[(q, mo)] = used.get((q, mo), 0) + 1
+                offset += deg
+            assert offset == held
+        assert len(used) == E and set(used.values()) == {1}
+
+
+def _emulate_cluster(pt, llr, iterations, algorithm="min-sum"):
+    """The cluster kernel's data movement on its plan, run to the budget on
+    (n, num_cols*Z) 'cw' LLRs, with the plain decoder's check rule
+    (``decoder_fast._check_messages``): each block's slots, the message
+    phase reading an edge's total and message from the column's owner and
+    storing the new message there by variable lane, the column phase summing
+    a column's messages in its owner's slots in ascending row order.
+    Returns (bits, parity_ok)."""
+    import torch
+
+    from ldpc_3gpp_tpu_torch.ops import decoder_fast
+
+    Z, nc, nr, E = pt.Z_c, pt.num_cols, pt.num_rows, len(pt.edges[0])
+    size = t_cuda.flooding_layout(pt)
+    plan = t_cuda._cluster_plan(pt, size)
+    slots_max = t_cuda._cluster_split(pt, size)[2]
+    H, W = t_cuda.MAX_CLUSTER + 1, t_cuda.CLUSTER_TABLE_WORDS
+    cols_lo = plan[H:H + size + 1]
+    table = plan[2 * H:2 * H + W * nc].reshape(nc, W)
+    etab = plan[2 * H + W * nc:].reshape(E, W)
+    _, row_start, _ = t_cuda._graph_plan(pt, tuple(range(nr)))
+    n = llr.shape[0]
+    chan = llr.reshape(n, nc, Z)
+    slots = [torch.full((n, slots_max, Z), float("nan")) for _ in range(size)]
+    for q in range(size):
+        for j in range(cols_lo[q], cols_lo[q + 1]):
+            slots[q][:, j - cols_lo[q]] = chan[:, table[j, 0]]
+
+    def at(e, word):  # (block, slot) of edge e's total (word 0) or message (2)
+        x = int(etab[e, word])
+        q = int(etab[e, 0]) >> t_cuda.OWNER_SHIFT
+        return q, (x & 0xFFFFFF if word == 0 else x) // Z
+
+    def parity():
+        bad = torch.zeros(n, dtype=torch.bool)
+        for r in range(nr):
+            par = torch.zeros(n, Z, dtype=torch.bool)
+            for e in range(row_start[r], row_start[r + 1]):
+                q, s = at(e, 0)
+                par ^= torch.roll(slots[q][:, s], -int(etab[e, 1]), dims=-1) < 0
+            bad |= par.any(-1)
+        return ~bad
+
+    for it in range(iterations):
+        new = []
+        for r in range(nr):
+            es = range(row_start[r], row_start[r + 1])
+            v = []
+            for e in es:
+                (q, s), (_, ms) = at(e, 0), at(e, 2)
+                t = torch.roll(slots[q][:, s], -int(etab[e, 1]), dims=-1)
+                v.append(t if it == 0 else t - torch.roll(slots[q][:, ms], -int(etab[e, 1]),
+                                                          dims=-1))
+            new.append((es, decoder_fast._check_messages(v, algorithm, 0.8125, 0.15)))
+        for es, ms in new:  # each message slot is its edge's alone
+            for e, m in zip(es, ms):
+                q, s = at(e, 2)
+                slots[q][:, s] = torch.roll(m, int(etab[e, 1]), dims=-1)
+        for q in range(size):
+            for j in range(cols_lo[q], cols_lo[q + 1]):
+                c, moff, deg, _ = table[j]
+                acc = slots[q][:, moff // Z]
+                for k in range(1, deg):
+                    acc = acc + slots[q][:, moff // Z + k]
+                slots[q][:, j - cols_lo[q]] = chan[:, c] + acc
+    bits = torch.empty(n, nc, Z, dtype=torch.int8)
+    for q in range(size):
+        for j in range(cols_lo[q], cols_lo[q + 1]):
+            bits[:, table[j, 0]] = (slots[q][:, j - cols_lo[q]] < 0).to(torch.int8)
+    return bits.reshape(n, nc * Z), parity()
+
+
+@pytest.mark.parametrize("bg,Z", [(1, 384), (1, 160), (2, 240)])
+def test_cluster_plan_emulated_equals_the_plain_decoder(bg, Z):
+    """The kernel's addressing on the plan, emulated with the plain check
+    rule, gives the plain decoder's bits and parity bit for bit (min-sum,
+    run to a budget of 3 sweeps; the rule's arithmetic is held on the card):
+    every edge reads its column's total and its own message where the plan
+    keeps them, and the column sums run in ascending row order."""
+    import torch
+
+    pt = _cluster_params(bg, Z)
+    rng = np.random.default_rng(Z)
+    n = 3
+    llr = torch.from_numpy(rng.normal(0.6, 1.6, (n, pt.num_cols * Z)).astype(np.float32))
+    llr[:, :2 * Z] = 0.0
+    bits, ok = _emulate_cluster(pt, llr, 3)
+    want = t_cuda.decode_plain(pt, llr, iterations=3, algorithm="min-sum", schedule="flooding",
+                               early_termination=False)
+    assert torch.equal(bits, want.bits) and torch.equal(ok, want.parity_ok)
 
 
 def test_layout_rule_at_the_paths_shapes():
@@ -272,6 +451,7 @@ def test_flooding_probe_variants_patch_the_kernel_source(variant, tmp_path, monk
         assert f.read() == header
     orig = _source()
     assert (text == orig) == (variant == "kernel")
-    end = orig.index("// An item's messages in the packed kernel's global scratch")
-    assert text.startswith(orig[:orig.index("struct ClusterTotals")])
+    # only ClusterEdges and the cluster kernel change
+    end = orig.index("// Walks the items t, t + T, t + 2T, ... of a (major, row, lane)")
+    assert text.startswith(orig[:orig.index("struct ClusterEdges")])
     assert text.endswith(orig[end:])

@@ -130,11 +130,13 @@ def test_automatic_rule_fits_every_lifting_size():
 def test_shared_bytes_formula():
     # one codeword per block: the figures of the kernels' notes (BG1 Z=384:
     # one flooding block would need totals, messages and both plans, so a
-    # cluster of three blocks holds the codeword)
+    # cluster of three blocks holds the codeword, each block its columns'
+    # totals and their edges' messages, 138 slots of 384 lanes, and the
+    # cluster's tables)
     p = TParams(BG=1, A=8424, G=25272, Q_m=2)
     E = len(p.edges[0])
     assert t_cuda.shared_bytes("flooding", 384, p.num_cols, p.num_rows, E) == 595_344
-    assert t_cuda.flooding_layout(p) == 3 and t_cuda.flooding_shared_bytes(p, 3) == 205_264
+    assert t_cuda.flooding_layout(p) == 3 and t_cuda.flooding_shared_bytes(p, 3) == 218_364
     assert t_cuda.shared_bytes("layered", 384, p.num_cols, p.num_rows, E) == 109_692
     assert not t_cuda._fits("flooding", p, 2) and t_cuda._fits("flooding", p, 1)
     # P codewords: P sets of state and P flag words on top of the tables
