@@ -1,49 +1,79 @@
-"""What holds the cluster form of the flooding kernel back, by taking its
-parts away.
+"""What holds the flooding kernels back, by taking their parts away.
 
 ``ncu`` cannot profile on the machine with the card, so this tool measures
-the split of ``ldpc_flooding_cluster_kernel``'s time (``csrc/ldpc_flooding.cu``)
-by building variants of the source that leave one part of the work out, and
-timing each at ``snr_vs_a``'s A=8000 launch (BG1 A=8000 G=24000 Z=384, a
-cluster of 3 blocks per codeword, sum-product, -1.6 dB, 50 iterations, 'd'
-in, 'sys' out) at 256 codewords (one call of the sweep) and at 8,192 (a
-step of the ``snr_vs_a_a8000_b8192`` benchmark cell).  The variants:
+the split of a flooding kernel's time (``csrc/ldpc_flooding.cu``) by
+building variants of the source that leave one part of the work out, or do
+it another way, and timing each at the launch a benchmark cell makes.  Two
+families:
 
-- ``kernel``: the kernel as it is;
-- ``local_reads``: every access to distributed shared memory (DSMEM) made
-  an access to the block's own shared memory at the same offset (the
-  message phase's reads of the totals and of the messages, and its stores
-  of the messages);
-- ``local_totals``: the same for the reads of the totals only;
-- ``local_messages``: the same for the messages' reads and stores only;
-- ``own_rank_plain``: the block's own column owner reached through a plain
-  shared pointer, the other ranks through the cluster mapping (a kernel in
-  its own right, whose results must equal the kernel's);
-- ``no_vote``: no block vote and no DSMEM store of it (every codeword runs
-  on);
-- ``no_second_sync``: no ``cluster.sync()`` after the column phase (the
-  next message phase races the column phase).
+- ``cluster``: ``ldpc_flooding_cluster_kernel`` at ``snr_vs_a``'s A=8000
+  launch (BG1 A=8000 G=24000 Z=384, a cluster of 3 blocks per codeword,
+  sum-product, -1.6 dB, 50 iterations, 'd' in, 'sys' out) at 256 codewords
+  (one call of the sweep) and at 8,192 (a step of the
+  ``snr_vs_a_a8000_b8192`` benchmark cell).  The variants:
 
-The column phase reads only its own block's shared memory (each column's
-messages live with its total), so no variant takes its reads apart; the
-form before that, whose column phase read other blocks' messages, was taken
-apart by this tool with ``local_columns`` in their place (PERF.md §6).
-Every variant but ``own_rank_plain`` computes wrong bits; only their times
-mean anything, so every variant is timed run to the budget (the same work
+  - ``kernel``: the kernel as it is;
+  - ``local_reads``: every access to distributed shared memory (DSMEM) made
+    an access to the block's own shared memory at the same offset (the
+    message phase's reads of the totals and of the messages, and its stores
+    of the messages);
+  - ``local_totals``: the same for the reads of the totals only;
+  - ``local_messages``: the same for the messages' reads and stores only;
+  - ``own_rank_plain``: the block's own column owner reached through a plain
+    shared pointer, the other ranks through the cluster mapping (a kernel in
+    its own right, whose results must equal the kernel's);
+  - ``no_vote``: no block vote and no DSMEM store of it (every codeword runs
+    on);
+  - ``no_second_sync``: no ``cluster.sync()`` after the column phase (the
+    next message phase races the column phase).
+
+  The column phase reads only its own block's shared memory (each column's
+  messages live with its total), so no variant takes its reads apart; the
+  form before that, whose column phase read other blocks' messages, was
+  taken apart by this tool with ``local_columns`` in their place (PERF.md
+  §6).  No variant reads another block's shared memory after the last
+  ``cluster.sync()``.
+
+- ``one_block``: ``ldpc_flooding_kernel``'s min-sum instantiation (float32
+  messages) at BASELINE config #1's launch (BG2 A=100 G=200 Z=20, normalized
+  min-sum alpha 0.8125, 2.0 dB, 50 iterations, 'd' in, 'sys' out), one
+  codeword per block and several blocks per SM, at 2,048 codewords (a
+  ``bler_vs_snr`` call) and at 524,288 (a step of the
+  ``config1_bg2_a100_b524288`` benchmark cell).  The variants:
+
+  - ``kernel``: the kernel as it is;
+  - ``no_column_phase``: the column phase left out (the totals never
+    change);
+  - ``no_message_stores``: the message phase computes, but a sink takes its
+    ``deg`` stores of new messages;
+  - ``channel_on_chip``: the channel LLRs copied into shared memory once per
+    block and read there by the column phase (exact);
+  - ``no_rotation``: ``rot`` and ``unrot`` as the identity;
+  - ``sorted_deal``: rows and columns dealt in descending degree (exact:
+    the items of a sweep are independent, and each column still sums in
+    ascending row order);
+  - ``no_vote``: the vote's ``__syncthreads_or`` made a plain barrier;
+  - ``threads_64`` ... ``threads_256``: the kernel at other block sizes than
+    the rule's, through ``decode``'s internal ``_threads`` (the largest
+    batch only).
+
+Every variant that is not exact computes wrong bits; only their times mean
+anything, so every variant is timed run to the budget (the same work
 whatever the bits), and those that compute the kernel's bits also with early
-termination (their results checked equal).  No variant reads another block's
-shared memory after the last ``cluster.sync()``.  The variants are written to
-and built in ``build/ldpc_3gpp_tpu_torch/probe/flooding/`` with the package's
+termination (their results checked equal).  Each record has the variant's
+registers, stack and spills (``ptxas -v``) and its blocks per SM (the CUDA
+runtime's occupancy at the launch).  The variants are written to and built
+in ``build/ldpc_3gpp_tpu_torch/probe/<family folder>/`` with the package's
 nvcc flags, one ``nvcc`` each, all started together (a variant that does not
 build is reported, not fatal), and launched through ``decode``'s internal
 ``_lib``.
 
     python3 -m ldpc_3gpp_tpu_torch.tools.flooding_probe [256] [8192]
+    python3 -m ldpc_3gpp_tpu_torch.tools.flooding_probe one_block [2048] [524288]
 
-prints one JSON line per batch (default: both) with the card's name and
-power limit, each variant's registers, stack and spills (``ptxas -v``) and
-its times (means of several launches each, CUDA events).  Needs a CUDA
-device and nvcc.
+prints one JSON line per batch (default: the family's two) with the card's
+name and power limit, each variant's records and its times (means of several
+launches each, CUDA events).  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -60,7 +90,7 @@ from .small_z import noisy_llrs
 
 SOURCE = "ldpc_flooding.cu"
 HEADER = layered_probe.HEADER
-FAMILY = "flooding"
+FAMILY = "flooding"  # the cluster family's folder under the probe directory
 
 # (file, text in the source, its replacement, occurrences)
 _OWNER = ("    return cg::this_cluster().map_shared_rank(slots, "
@@ -103,49 +133,180 @@ BATCHES = (256, 8192)
 # launches per mean and means per variant, by batch
 REPS = {256: (10, 5), 8192: (2, 3)}
 
+# The one-codeword kernel at config #1's launch.
+ONE_BLOCK_FOLDER = "flooding_one_block"
+_OB_NO_COLUMN_PHASE = (
+    SOURCE,
+    "    // Column phase: totals = llr + the column's messages in row order.\n"
+    "    {\n      ItemWalk w(t, T, Z);\n"
+    "      for (int i = t; i < nc * Z; i += T, w.next()) {\n",
+    "    // Column phase: totals = llr + the column's messages in row order.\n"
+    "    {\n      ItemWalk w(t, T, Z);\n"
+    "      for (int i = t; i < 0; i += T, w.next()) {\n", 1)
+_OB_NO_MESSAGE_STORES = (
+    SOURCE, "        g.message(i, z) = __uint_as_float(mag ^ (b & SIGN_BIT));\n",
+    "        asm volatile(\"\" ::\"r\"(mag ^ (b & SIGN_BIT)));\n", 1)
+# the channel LLRs in a static array of nc * Z floats (BG2 Z=20: 1,040)
+_OB_CHANNEL_ARRAY = (
+    SOURCE, "  float* totals = reinterpret_cast<float*>(smem);\n  float* msgs = totals + nc * Z;\n",
+    "  __shared__ float chan_s[1040];\n"
+    "  float* totals = reinterpret_cast<float*>(smem);\n  float* msgs = totals + nc * Z;\n", 1)
+_OB_CHANNEL_FILL = (SOURCE, "      totals[i] = channel_llr(src, w.major, w.lane, a);\n",
+                    "      totals[i] = chan_s[i] = channel_llr(src, w.major, w.lane, a);\n", 1)
+_OB_CHANNEL_READ = (SOURCE, "        const float v = channel_llr(src, w.major, w.lane, a);\n",
+                    "        const float v = chan_s[i];\n", 1)
+_OB_NO_ROT = (HEADER, "  int idx = z + shift;\n  return idx >= Z ? idx - Z : idx;\n",
+              "  return z;\n", 1)
+_OB_NO_UNROT = (SOURCE, "  const int idx = z - shift;\n  return idx < 0 ? idx + Z : idx;\n",
+                "  return z;\n", 1)
+# descending degree, stable, by thread 0 after the plans are loaded
+_OB_DEAL_ORDER = (
+    SOURCE, "  __syncthreads();\n\n  int ok = 0;\n",
+    "  __shared__ int deal_rows[64], deal_cols[128];\n"
+    "  __syncthreads();\n"
+    "  if (t == 0) {\n"
+    "    for (int r = 0; r < nr; ++r) {\n"
+    "      const int d = row_start[r + 1] - row_start[r];\n"
+    "      int k = r;\n"
+    "      for (; k > 0 && row_start[deal_rows[k - 1] + 1] - row_start[deal_rows[k - 1]] < d; --k)\n"
+    "        deal_rows[k] = deal_rows[k - 1];\n"
+    "      deal_rows[k] = r;\n"
+    "    }\n"
+    "    for (int c = 0; c < nc; ++c) {\n"
+    "      const int d = col_start[c + 1] - col_start[c];\n"
+    "      int k = c;\n"
+    "      for (; k > 0 && col_start[deal_cols[k - 1] + 1] - col_start[deal_cols[k - 1]] < d; --k)\n"
+    "        deal_cols[k] = deal_cols[k - 1];\n"
+    "      deal_cols[k] = c;\n"
+    "    }\n"
+    "  }\n"
+    "  __syncthreads();\n\n  int ok = 0;\n", 1)
+_OB_DEAL_ROWS = (
+    SOURCE,
+    "          const int e0 = row_start[w.major];\n"
+    "          bad |= message_item<SUM_PRODUCT, BF16>(\n"
+    "              LocalEdges{totals, msgs + (size_t)e0 * Z + w.lane, red + e0, Z},\n"
+    "              row_start[w.major + 1] - e0, w.lane, first, alpha_t, a.offset_rule, a.beta);\n",
+    "          const int r = deal_rows[w.major];\n"
+    "          const int e0 = row_start[r];\n"
+    "          bad |= message_item<SUM_PRODUCT, BF16>(\n"
+    "              LocalEdges{totals, msgs + (size_t)e0 * Z + w.lane, red + e0, Z},\n"
+    "              row_start[r + 1] - e0, w.lane, first, alpha_t, a.offset_rule, a.beta);\n", 1)
+_OB_DEAL_COLS = (
+    SOURCE,
+    "        const float v = channel_llr(src, w.major, w.lane, a);\n"
+    "        const int k1 = col_start[w.major + 1];\n"
+    "        int k = col_start[w.major];\n",
+    "        const int c = deal_cols[w.major];\n"
+    "        const float v = channel_llr(src, c, w.lane, a);\n"
+    "        const int k1 = col_start[c + 1];\n"
+    "        int k = col_start[c];\n", 1)
+_OB_DEAL_TOTALS = (SOURCE, "        totals[i] = __fadd_rn(v, sum);\n",
+                   "        totals[c * Z + w.lane] = __fadd_rn(v, sum);\n", 1)
+_OB_NO_VOTE = (
+    SOURCE,
+    "    if (!__syncthreads_or(bad & SIGN_BIT) && (a.early_termination || !update)) {\n"
+    "      ok = 1; // uniform over the block\n",
+    "    asm volatile(\"\" ::\"r\"(bad));\n    __syncthreads();\n    if (!update) {\n"
+    "      ok = 1; // uniform over the block\n", 1)
+ONE_BLOCK_VARIANTS = {
+    "kernel": (),
+    "no_column_phase": (_OB_NO_COLUMN_PHASE,),
+    "no_message_stores": (_OB_NO_MESSAGE_STORES,),
+    "channel_on_chip": (_OB_CHANNEL_ARRAY, _OB_CHANNEL_FILL, _OB_CHANNEL_READ),
+    "no_rotation": (_OB_NO_ROT, _OB_NO_UNROT),
+    "sorted_deal": (_OB_DEAL_ORDER, _OB_DEAL_ROWS, _OB_DEAL_COLS, _OB_DEAL_TOTALS),
+    "no_vote": (_OB_NO_VOTE,),
+}
+ONE_BLOCK_EXACT = ("kernel", "channel_on_chip", "sorted_deal")
+ONE_BLOCK_ENTRY = "_Z20ldpc_flooding_kernelILb0ELb0EE"  # <min-sum, float32>
+ONE_BLOCK_SHAPE = dict(BG=2, A=100, G=200, Q_m=2)
+ONE_BLOCK_ESN0_DB = 2.0
+ONE_BLOCK_DECODE_KW = dict(iterations=50, algorithm="min-sum", alpha=0.8125,
+                           schedule="flooding", channel_format="d", output_format="sys")
+ONE_BLOCK_BATCHES = (2048, 524288)
+ONE_BLOCK_REPS = {2048: (10, 5), 524288: (2, 3)}
+# block sizes timed beside the rule's, at the largest batch
+ONE_BLOCK_THREADS = (64, 96, 128, 192, 256)
 
-def write_variant(variant: str) -> str:
-    """The variant's sources under the probe directory; returns its .cu
-    path."""
-    return layered_probe.write_sources(variant, VARIANTS[variant], FAMILY, (SOURCE, HEADER))
+# family -> (variants, folder, exact variants, ptxas entry, code, Es/N0,
+# decode arguments, batches, repetitions, block sizes, the layout the launch
+# must have: a cluster (2 or more) or one block)
+FAMILIES = {
+    "cluster": (VARIANTS, FAMILY, EXACT, ENTRY, SHAPE, ESN0_DB, DECODE_KW, BATCHES, REPS, (),
+                "cluster"),
+    "one_block": (ONE_BLOCK_VARIANTS, ONE_BLOCK_FOLDER, ONE_BLOCK_EXACT, ONE_BLOCK_ENTRY,
+                  ONE_BLOCK_SHAPE, ONE_BLOCK_ESN0_DB, ONE_BLOCK_DECODE_KW, ONE_BLOCK_BATCHES,
+                  ONE_BLOCK_REPS, ONE_BLOCK_THREADS, "one_block"),
+}
 
 
-def probe(device, batches=BATCHES) -> dict:
+def write_variant(variant: str, family: str = "cluster") -> str:
+    """The variant's sources under the probe directory (the family's
+    folder); returns its .cu path."""
+    variants, folder = FAMILIES[family][:2]
+    return layered_probe.write_sources(variant, variants[variant], folder, (SOURCE, HEADER))
+
+
+def _blocks_per_sm(lib, params, kw, threads) -> int:
+    """Blocks of the variant's one-codeword launch that one SM holds."""
+    bf16 = int(kw.get("message_dtype") == "bfloat16")
+    return lib.ldpc_flooding_blocks_per_sm(
+        decoder_cuda._RULE_CODES[kw["algorithm"]], bf16, 1, params.Z_c, params.num_cols,
+        params.num_rows, len(params.edges[0]), decoder_cuda.LAYOUT_ON_CHIP, threads, 0)
+
+
+def probe(device, batches=None, family: str = "cluster") -> dict:
     """{batch: {variant: record}}: each variant's ptxas record and times at
-    the A=8000 launch, run to the budget, and for the exact variants also
-    with early termination (results checked equal to the kernel's)."""
+    the family's launch, run to the budget, and for the exact variants also
+    with early termination (results checked equal to the kernel's); for the
+    one-block family also its blocks per SM, and the kernel at the other
+    block sizes at the largest batch."""
+    (variants, _, exact, entry, shape, esn0_db, decode_kw, default_batches, reps_by_n,
+     thread_sizes, form) = FAMILIES[family]
+    batches = tuple(batches or default_batches)
     libs = layered_probe.build_sources(
-        {v: write_variant(v) for v in VARIANTS}, "ldpc_flooding", ENTRY)
-    params = LDPCParams(**SHAPE)
+        {v: write_variant(v, family) for v in variants}, "ldpc_flooding", entry)
+    params = LDPCParams(**shape)
     launch = decoder_cuda.launch_shape(params, max(batches), "flooding")
-    if launch["layout"] < 2:
-        raise AssertionError(f"the A=8000 launch is not a cluster: {launch}")
-    budget = dict(DECODE_KW, early_termination=False)
+    if (launch["layout"] >= 2) != (form == "cluster") or launch["codewords_per_block"] != 1:
+        raise AssertionError(f"the {family} launch has another form: {launch}")
+    budget = dict(decode_kw, early_termination=False)
     out = {}
     for n in batches:
-        d = noisy_llrs(params, n, ESN0_DB, 21, device)
-        reps, means = REPS.get(n, (2, 3))
+        d = noisy_llrs(params, n, esn0_db, 21, device)
+        reps, means = reps_by_n.get(n, (2, 3))
+        threads = decoder_cuda.launch_shape(params, n, "flooding")["threads"]
+
+        def times(lib, kw, T=0):
+            return [time_ms(lambda: decoder_cuda.decode(params, d, _lib=lib, _threads=T, **kw),
+                            reps) for _ in range(means)]
+
         rows, reference = {}, None
         for v, (lib, ptxas) in libs.items():
             if lib is None:
                 rows[v] = ptxas
                 continue
-            rec = dict(ptxas, budget_ms=[
-                time_ms(lambda: decoder_cuda.decode(params, d, _lib=lib, **budget), reps)
-                for _ in range(means)], budget=DECODE_KW["iterations"])
-            if v in EXACT:
-                res = decoder_cuda.decode(params, d, _lib=lib, **DECODE_KW)
+            rec = dict(ptxas, budget_ms=times(lib, budget), budget=decode_kw["iterations"])
+            if form == "one_block":
+                rec["blocks_per_sm"] = _blocks_per_sm(lib, params, decode_kw, threads)
+            if v in exact:
+                res = decoder_cuda.decode(params, d, _lib=lib, **decode_kw)
                 torch.cuda.synchronize()
                 got = (res.bits, res.parity_ok, res.iterations)
                 if reference is None:
                     reference = got
                 elif not all(torch.equal(a, b) for a, b in zip(got, reference)):
                     raise AssertionError(f"{v} differs from the kernel")
-                rec["early_termination_ms"] = [
-                    time_ms(lambda: decoder_cuda.decode(params, d, _lib=lib, **DECODE_KW),
-                            reps) for _ in range(means)]
+                rec["early_termination_ms"] = times(lib, decode_kw)
                 rec["mean_iterations"] = float(res.iterations.float().mean())
             rows[v] = rec
+        if thread_sizes and n == max(batches) and libs["kernel"][0] is not None:
+            lib = libs["kernel"][0]
+            for T in thread_sizes:
+                rows[f"threads_{T}"] = dict(
+                    threads=T, blocks_per_sm=_blocks_per_sm(lib, params, decode_kw, T),
+                    budget_ms=times(lib, budget, T), budget=decode_kw["iterations"])
         out[n] = dict(codewords=n, launch=decoder_cuda.launch_shape(params, n, "flooding"),
                       variants=rows)
         del d
@@ -153,16 +314,20 @@ def probe(device, batches=BATCHES) -> dict:
 
 
 def main(argv=None) -> int:
-    args = argv if argv is not None else sys.argv[1:]
-    batches = tuple(int(a) for a in args) or BATCHES
+    args = list(argv if argv is not None else sys.argv[1:])
+    family = args.pop(0) if args and args[0] in FAMILIES else "cluster"
+    batches = tuple(int(a) for a in args)
     if not torch.cuda.is_available():
         print("flooding_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = card_name_and_power_limit()
-    for n, rec in probe(dev, batches).items():
-        print(json.dumps({"card": card, "kernel": "ldpc_flooding_cluster_kernel<true, false>",
-                          "shape": dict(SHAPE, esn0_db=ESN0_DB, **DECODE_KW), **rec}),
+    _, _, _, entry, shape, esn0_db, decode_kw = FAMILIES[family][:7]
+    kernel = {"cluster": "ldpc_flooding_cluster_kernel<true, false>",
+              "one_block": "ldpc_flooding_kernel<false, false>"}[family]
+    for n, rec in probe(dev, batches, family).items():
+        print(json.dumps({"card": card, "family": family, "kernel": kernel,
+                          "shape": dict(shape, esn0_db=esn0_db, **decode_kw), **rec}),
               flush=True)
     return 0
 

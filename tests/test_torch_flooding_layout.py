@@ -455,3 +455,53 @@ def test_flooding_probe_variants_patch_the_kernel_source(variant, tmp_path, monk
     end = orig.index("// Walks the items t, t + T, t + 2T, ... of a (major, row, lane)")
     assert text.startswith(orig[:orig.index("struct ClusterEdges")])
     assert text.endswith(orig[end:])
+
+
+@pytest.mark.parametrize("variant", sorted(flooding_probe.ONE_BLOCK_VARIANTS))
+def test_flooding_probe_one_block_variants_patch_the_kernel_source(variant, tmp_path, monkeypatch):
+    """Each variant of the probe's ``one_block`` family finds each text it
+    replaces in the kernel's source or the shared header exactly as often as
+    it says, is written to the family's own folder, leaves the cluster
+    kernel's text as it is, and only ``kernel`` leaves both files as they
+    are."""
+    monkeypatch.setattr(layered_probe, "PROBE_DIR", str(tmp_path))
+    with open(os.path.join(kernels_build.CSRC_DIR, flooding_probe.HEADER)) as f:
+        header = f.read()
+    orig = {flooding_probe.SOURCE: _source(), flooding_probe.HEADER: header}
+    for name, old, _, count in flooding_probe.ONE_BLOCK_VARIANTS[variant]:
+        assert orig[name].count(old) == count, (variant, old)
+    src = flooding_probe.write_variant(variant, "one_block")
+    folder = tmp_path / flooding_probe.ONE_BLOCK_FOLDER / variant
+    assert src == str(folder / flooding_probe.SOURCE)
+    got = {name: (folder / name).read_text() for name in orig}
+    assert (got == orig) == (variant == "kernel")
+    cluster = orig[flooding_probe.SOURCE]
+    cluster = cluster[cluster.index("// Layout (a): a thread block cluster"):
+                      cluster.index("// Walks the items t, t + T, t + 2T, ... of a (major, row, lane)")]
+    assert cluster in got[flooding_probe.SOURCE]
+
+
+def test_flooding_probe_families_and_their_launches():
+    """The probe's two families time the launches their cells make: the
+    cluster kernel at snr_vs_a's A=8000 launch, the one-codeword kernel at
+    config #1's (one block per codeword, several blocks per SM, the exact
+    variants among the family's), and the command line takes the family
+    first."""
+    fams = flooding_probe.FAMILIES
+    assert set(fams) == {"cluster", "one_block"}
+    for family, (variants, folder, exact, entry, shape, _, kw, batches, reps, threads,
+                 form) in fams.items():
+        assert "kernel" in variants and set(exact) <= set(variants) and exact[0] == "kernel"
+        assert kw["schedule"] == "flooding" and set(reps) == set(batches)
+        pt = TParams(**shape)
+        for n in batches:
+            launch = t_cuda.launch_shape(pt, n, "flooding")
+            assert launch["codewords_per_block"] == 1
+            assert (launch["layout"] >= 2) == (form == "cluster"), (family, launch)
+        assert all(T % 32 == 0 for T in threads)
+    one = fams["one_block"]
+    assert one[4] == dict(BG=2, A=100, G=200, Q_m=2) and one[5] == 2.0
+    assert one[6]["algorithm"] == "min-sum" and one[6]["iterations"] == 50
+    assert one[7] == (2048, 524288) and one[3].startswith("_Z20ldpc_flooding_kernelILb0ELb0E")
+    z20 = TParams(**one[4])
+    assert t_cuda.launch_shape(z20, 524288, "flooding")["threads"] < t_cuda.FLOODING_MAX_THREADS

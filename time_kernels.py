@@ -19,6 +19,10 @@ events:
   iterations;
 - V3-SP and V3-NMS: flooding sum-product and min-sum, BG2 A=3842 Z=208,
   2,048 codewords at 1.0 dB, 8 iterations;
+- V3-NMS-config1: flooding min-sum at the launch shape of the
+  ``config1_bg2_a100_b524288`` benchmark cell (BG2 A=100 Z=20, 2.0 dB, 50
+  iterations, one codeword per block, several blocks per SM), at 65,536
+  codewords, an eighth of the cell's step;
 - V3-SP-sweep and V3-SP-sweep-A1000: flooding sum-product as ``snr_vs_a``
   launches it, BG1 R=1/3, 256 codewords, 50 iterations, at A=8000 (Z=384,
   -1.6 dB) and A=1000 (Z=48, -1.0 dB);
@@ -88,6 +92,8 @@ def main() -> int:
          dict(iterations=8, algorithm="sum-product", **flooding)),
         ("V3-NMS", cs.P2_FIELDS, 1.0, 1024, 20,
          dict(iterations=8, algorithm="min-sum", **flooding)),
+        ("V3-NMS-config1", cs.CONFIG1_FIELDS, 2.0, 65536, 5,
+         dict(iterations=50, algorithm="min-sum", **flooding)),
         ("V3-SP-sweep", sweep_a8000, -1.6, 256, 10,
          dict(iterations=50, algorithm="sum-product", **flooding)),
         ("V3-SP-sweep-A1000", dict(BG=1, A=1000, G=3000, Q_m=2), -1.0, 256, 10,
