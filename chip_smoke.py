@@ -137,6 +137,9 @@ TPU_OP_RATES = "tools/vpu_ceiling.py:35"
 CONFIG1_FIELDS = dict(BG=2, A=100, G=200, Q_m=2)
 CONFIG1_GOLDEN = "BLER_vs_SNR_BG2_A100_R12_QPSK_50it_minsum.json"
 CONFIG1_BATCH = 2048
+# a step of the config1_bg2_a100_b524288 benchmark cell: the launch its
+# kernels-line row V3-NMS-config1 is timed at and held to the plain version
+CONFIG1_CELL_BATCH = 524288
 # The automatic rule packs no call of either sweep (it needs 8,192 codewords
 # per launch), so the packed kernels run on this path by the explicit knob:
 # config #1 again with ``codewords_per_block=CONFIG1_PACK`` (80 lanes, three
@@ -332,9 +335,14 @@ def phase_tie_cases(dev, check):
     messages staged ahead) on the same LLRs: every BG2 degree at Z=20 (and
     packed), BG1's rows of 19 at the flagship shape (3 sweeps: its plain
     version takes seconds per sweep there).  Around the waterfall, so that
-    codewords stop at different sweeps.  Returns the share of LLRs at the
-    smallest level, per shape."""
+    codewords stop at different sweeps.  The one-codeword flooding kernel's
+    min-sum family (rows at their own degree) on tied LLRs at Z=20 and at
+    the largest one-block Z of each base graph (BG2 Z=224, BG1 Z=144):
+    min-sum, offset-min-sum with beta 0.5 ('cw' in and out, run to the
+    budget), bfloat16 messages.  Returns the share of LLRs at the smallest
+    level, per shape."""
     from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+    from ldpc_3gpp_tpu_torch.tools.small_z import params_for_z
 
     ds = dict(channel_format="d", output_format="sys")
     oms = dict(algorithm="offset-min-sum", beta=0.5, layer_order="natural")
@@ -359,6 +367,19 @@ def phase_tie_cases(dev, check):
                   codewords_per_block=CONFIG1_PACK, **ds)
             check("V7-layered", params, cw, iterations=ITERATIONS, message_dtype="bfloat16",
                   codewords_per_block=CONFIG1_PACK, **oms)
+    fl = dict(schedule="flooding", iterations=12)
+    for params in (LDPCParams(**CONFIG1_FIELDS), params_for_z(2, 224), params_for_z(1, 144)):
+        n = 264 if params.Z_c > 20 else CONFIG1_BATCH
+        d = tied(noisy_d_tilde(params, "QPSK", 1.0 if params.BG == 2 else 0.5, n, 16,
+                               dev)[0][:, 0])
+        cw = codeword_llrs(params, d)
+        out[f"flooding_bg{params.BG}_z{params.Z_c}"] = float((d.abs() == 0.5).float().mean())
+        check("V3-NMS-config1" if params.Z_c == 20 else "V3-NMS", params, d,
+              algorithm="min-sum", **fl, **ds)
+        check("V4-flooding", params, cw, algorithm="offset-min-sum", beta=0.5,
+              early_termination=False, **fl)
+        check("V6-flooding", params, d, algorithm="offset-min-sum", beta=0.5,
+              message_dtype="bfloat16", **fl, **ds)
     return out
 
 
@@ -370,9 +391,10 @@ def phase_config1_launch(dev, check):
     messages and early termination ('d' in, 'sys' out), min-sum with an alpha
     schedule run to budget ('cw' in and out), sum-product at 8 iterations;
     half the codewords at 1.0 dB, half at 3.0 dB (sweeps to convergence from
-    0 to the budget).  Raises unless the launch has fewer than
-    FLOODING_MAX_THREADS threads per block and more than one block per SM in
-    every instantiation.  Returns the launch shape."""
+    0 to the budget); min-sum with bfloat16 messages and an alpha schedule.
+    Raises unless the launch has fewer than FLOODING_MAX_THREADS threads per
+    block and more than one block per SM in every instantiation.  Returns
+    the launch shape."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
     from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
 
@@ -391,9 +413,11 @@ def phase_config1_launch(dev, check):
     d = torch.cat([noisy_d_tilde(params, "QPSK", db, n // 2, 14 + i, dev)[0][:, 0]
                    for i, db in enumerate((1.0, 3.0))])
     ds = dict(schedule="flooding", channel_format="d", output_format="sys")
-    check("V3-NMS", params, d, algorithm="min-sum", iterations=50, **ds)
+    check("V3-NMS-config1", params, d, algorithm="min-sum", iterations=50, **ds)
     check("V6-flooding", params, d, algorithm="offset-min-sum", message_dtype="bfloat16",
           iterations=50, **ds)
+    check("V6-flooding", params, d, algorithm="min-sum", message_dtype="bfloat16",
+          alpha_schedule=(0.65, 2), iterations=50, **ds)
     check("V4-flooding", params, codeword_llrs(params, d), schedule="flooding",
           algorithm="min-sum", alpha_schedule=(0.65, 2), iterations=20,
           early_termination=False)
@@ -1290,6 +1314,14 @@ def phase_times(generator, dev, card):
     out["V6-flooding"] = measure_variant(
         p2, d2, 10, algorithm="min-sum", message_dtype="bfloat16", **fl)
     del d2
+
+    # V3-NMS at the config #1 cell's launch: a step of CONFIG1_CELL_BATCH
+    # codewords at 2.0 dB (one 128-thread block per codeword, eight per SM)
+    pc = LDPCParams(**CONFIG1_FIELDS)
+    dc, _ = noisy_d_tilde(pc, "QPSK", 2.0, CONFIG1_CELL_BATCH, 27, dev)
+    out["V3-NMS-config1"] = measure_variant(pc, dc, 3, algorithm="min-sum",
+                                            **dict(fl, iterations=50))
+    del dc
 
     # snr_vs_a's launches at both ends of its range: the kernel alone (its
     # plain version would run 50 sweeps for minutes; these block shapes are
@@ -2555,6 +2587,7 @@ VARIANTS = [
     ("V6-layered", LAYERED_SOURCE, TPU_KERNEL + " (:492, 633-635)"),
     ("V3-SP", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V3-NMS", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
+    ("V3-NMS-config1", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V3-OMS", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V3-SP-cluster", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
     ("V3-NMS-cluster", FLOODING_SOURCE, TPU_KERNEL + " (:317-333, 442-458, 477-484, 501-511)"),
@@ -2590,9 +2623,9 @@ def check_registers():
     384-thread blocks per SM); the one-codeword layered sum-product kernel
     (V2) at most 72 (four 224-thread blocks per SM at P3's shape); the
     packed flooding kernel's six instantiations (three rules and message
-    types, messages on chip or in a scratch) and the flooding cluster
-    kernel's three at most 64 (1,024 threads per SM).  Returns their records
-    by group."""
+    types, messages on chip or in a scratch), the flooding cluster kernel's
+    three and the one-codeword flooding kernel's three at most 64 (1,024
+    threads per SM).  Returns their records by group."""
     from ldpc_3gpp_tpu_torch import kernels_build
 
     layered = ptxas_entries(kernels_build.build_log("ldpc_layered"))
@@ -2606,6 +2639,8 @@ def check_registers():
                              if "ldpc_flooding_packed_kernel" in k}, 64, 6),
         "cluster_flooding": ({k: v for k, v in flooding.items()
                               if "ldpc_flooding_cluster_kernel" in k}, 64, 3),
+        "one_block_flooding": ({k: v for k, v in flooding.items()
+                                if k.startswith("_Z20ldpc_flooding_kernel")}, 64, 3),
     }
     for name, (entries, most, count) in groups.items():
         bad = {k: v for k, v in entries.items()
@@ -2745,7 +2780,10 @@ def main() -> int:
     emit({"phase": "bench", "card": card, **phase_bench(dev, card), "seconds": watch.lap()})
     emit({"phase": "experiments", "card": card, **phase_experiments(dev),
           "seconds": watch.lap()})
-    emit({"phase": "benchmark", "card": card, **phase_benchmark(dev), "seconds": watch.lap()})
+    bench = phase_benchmark(dev)
+    emit({"phase": "benchmark", "card": card, **bench, "seconds": watch.lap()})
+    launches["V3-NMS-config1"] = sum(
+        bench["config1_bg2_a100_b524288"]["launches_by_shape"].values())
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})

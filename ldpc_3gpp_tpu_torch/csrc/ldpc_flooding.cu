@@ -24,14 +24,18 @@
 //     (all read the pre-sweep totals), so the items are dealt out over the
 //     block's threads, item t + k*blockDim.x to thread t, with no barrier
 //     between rows: the loads of different rows overlap across the warps of
-//     the SM (up to 32).  Within a thread the items run one after another,
-//     and an item's loads are interleaved with its arithmetic (its degree is
-//     a loop bound, not predicated slots).  Running a thread one item ahead
-//     (its next item's loads issued before the current item's arithmetic)
-//     was 17-21 % slower on an H100: at the 64 registers of a 1,024-thread
-//     block the second item's inputs went to the stack (PERF.md §6).  The
-//     check rule is the reference's (ops/decoder_fast.py), operation for
-//     operation.  Each item stores its new messages in place, unrounded.
+//     the SM (up to 32).  Within a thread the items run one after another.
+//     The rows are dealt in descending degree (the wrapper's plan), and the
+//     min-sum family runs each row unrolled to its own degree (3 to 10;
+//     other degrees at MAX_DEG slots left at the row's degree), so a warp's
+//     items mostly share one degree, all of an item's loads issue before its
+//     arithmetic, and no edge waits on a branch.  Running a thread one item
+//     ahead (its next item's loads issued before the current item's
+//     arithmetic) was 17-21 % slower on an H100: at the 64 registers of a
+//     1,024-thread SM the second item's inputs went to the stack (PERF.md
+//     §6).  The check rule is the reference's (ops/decoder_fast.py),
+//     operation for operation.  Each item stores its new messages in place,
+//     unrounded.
 //   - Fused syndrome.  The same phase ORs each item's row parity (the XOR of
 //     the sign bits of the totals it read), and one block vote after the
 //     phase decides whether the codeword stops.  The totals are untouched
@@ -42,14 +46,31 @@
 //     pass at it == iterations, and the single check of a run to budget, only
 //     reads the parity.
 //   - Column phase.  One (column, lane) item per thread at a time adds up its
-//     column's messages in ascending row order from the column plan (the
-//     column's first edge assigned, the later ones added with __fadd_rn) and
-//     writes totals = llr + sum as the channel LLRs are read ('d' synthesis,
-//     filler pinning): the same operations in the same order as the
-//     reference's column sums, with no atomics and no barrier per row.
-//   - Messages on chip.  Totals, all E*Z messages and the two plans fit one
+//     column's messages in ascending row order (the first assigned, the later
+//     ones added with __fadd_rn) and writes totals = llr + sum: the same
+//     operations in the same order as the reference's column sums, with no
+//     atomics and no barrier per row.
+//   - Where the messages are.  Taken apart at config #1's launch (BG2 Z=20,
+//     tools/flooding_probe.py, PERF.md §6), the form that kept each row's
+//     messages by check lane lost a third of its time to the column phase (a
+//     plan entry, a rotation and a read of another row's window per edge)
+//     and a third to the message phase's stores.  So the messages are kept
+//     by variable lane in column planes (plane k: the k-th edge, in ascending
+//     row order, of every column of more than k edges, columns in descending
+//     degree), the totals by column in the same order: the column phase
+//     reads 32 consecutive words of one plane per edge, with no plan entry
+//     and no rotation, and the message phase reaches an edge's total and
+//     message at the one variable lane it computes.  The other way round,
+//     the messages by check lane in row planes (the message phase's loads
+//     and stores consecutive, the column phase's reads rotated), was 20 %
+//     slower at that launch: its column phase does more per edge, and its
+//     stores cost as much as before.  The channel LLRs are kept in shared
+//     memory where the block still fits (up to BG2 Z=176 and BG1 Z=120), so
+//     the column phase does not re-read the input (8-11 % slower when it
+//     does).
+//   - Messages on chip.  Totals, all E*Z messages and the plan fit one
 //     block's 232,448 bytes up to BG2 Z=224 and BG1 Z=144 (P2's BG2 Z=208
-//     takes 210,704 B): then one block holds the codeword.  Above that a
+//     takes 211,036 B): then one block holds the codeword.  Above that a
 //     thread block cluster of 2 or 3 blocks on neighbouring SMs holds it
 //     (ldpc_flooding_cluster_kernel below; 3 at BG1 Z=384), each block with
 //     its share of the rows to update and of the columns, a column's total
@@ -70,8 +91,7 @@
 //     read back.  That gives the same bits as storing them rounded, and the
 //     same on-chip limits as float32.
 //   - Sweep 0 reads no messages (they are zero), so they are never
-//     zero-filled.  The channel LLRs are re-read from the input in every
-//     column phase (coalesced, from L2) instead of kept as a third copy.
+//     zero-filled.
 // The check rule's arithmetic, phi and the notes on bit-exactness are in
 // ldpc_bp.cuh, shared with the layered kernel.
 //
@@ -103,14 +123,6 @@ namespace cg = cooperative_groups;
 // Threads of a one-codeword block at most, and what its registers are held
 // to: one such block fills an SM's 64K registers.
 #define FLOODING_MAX_THREADS 1024
-
-// Dynamic shared memory of a one-codeword block: the totals and the E*Z
-// messages, in float32; the row plan (E int2) and the column plan (E int2);
-// the row and column offsets.  The wrapper's flooding_shared_bytes repeats
-// this formula and the cluster's below (a CPU test holds them equal).
-#define FLOODING_SHARED_BYTES(Z, nc, nr, E)                             \
-  (align16((size_t)(nc + E) * Z * 4) + (size_t)E * 16 + \
-   (size_t)(nr + nc + 2) * 4)
 
 // Shared memory of one block of a cluster (layout (a)): its columns' totals
 // and their edges' messages (slots_max Z-lane slots), the edge table and the
@@ -327,47 +339,171 @@ struct ItemWalk {
   }
 };
 
-// One codeword per block.  Shared memory: totals (nc*Z), the messages (E*Z,
-// slot e = the edge's position in row order), the row plan, the column plan,
-// the row offsets and the column offsets (FLOODING_SHARED_BYTES).
+// The one-codeword form's shared memory (FLOODING_SHARED_BYTES): `slots`
+// Z-lane float slots (the totals, the E*Z messages and, where they fit, the
+// channel LLRs), then the plan (ops/decoder_cuda.py::_one_block_plan): the
+// edge table (E int4), the column table (nc int2), the row offsets and the
+// planes' offsets (MAX_COLUMN_DEGREE + 1 ints).  The wrapper's
+// flooding_shared_bytes repeats this formula and the cluster's below (a CPU
+// test holds them equal).
+#define MAX_COLUMN_DEGREE 31  // densest column: 30 edges (BG1 column 0)
+#define FLOODING_SHARED_BYTES(Z, nc, nr, E, slots)                      \
+  (align16((size_t)(slots) * (Z) * 4) + (size_t)(E) * 16 + (size_t)(nc) * 8 + \
+   (size_t)((nr) + 1) * 4 + (MAX_COLUMN_DEGREE + 1) * 4)
+
+// Where the one-codeword form's edges are.  The totals are kept by column in
+// the plan's column order (descending degree), lane-contiguous; the messages
+// by variable lane in planes: plane k holds the k-th edge (in ascending row
+// order) of every column of more than k edges, the columns in the same
+// order, so that the column phase reads consecutive lanes of one plane per
+// edge.  red[i] = (the column's total + shift, the edge's message + shift,
+// Z - shift, 0): the edge's variable lane for check z is z + shift, less Z
+// from check Z - shift on.
+struct ColumnEdges {
+  static constexpr bool kPhiInSlot = false;
+  const float* totals;
+  float* msgs;
+  const int4* red;
+  int Z;
+  __device__ __forceinline__ int lane(const int4& ed, int z) const {
+    return z >= ed.z ? z - Z : z;
+  }
+  __device__ __forceinline__ float total(int i, int z) const {
+    const int4 ed = red[i];
+    return totals[ed.x + lane(ed, z)];
+  }
+  __device__ __forceinline__ float& message(int i, int z) const {
+    const int4 ed = red[i];
+    return msgs[ed.y + lane(ed, z)];
+  }
+};
+
+// One (row, lane) item of the min-sum family on ColumnEdges: message_item's
+// rule, operation for operation, unrolled to the row's degree D (no branch
+// per edge), or for D = 0 to MAX_DEG slots left at the row's degree (BG1's
+// rows of 19).  A row of up to kKeptOffsets edges keeps each edge's message
+// offset in a register from its load to its store; a denser one looks it up
+// again (beside its v_i, at 64 registers, they went to the stack).
+constexpr int kKeptOffsets = 6;
+
+template <bool BF16, int D>
+__device__ __forceinline__ unsigned min_sum_row(const ColumnEdges& g, int deg, int z,
+                                                bool first, float alpha_t, int offset_rule,
+                                                float beta) {
+  constexpr int S = D > 0 ? D : MAX_DEG;
+  constexpr bool kKeep = D > 0 && D <= kKeptOffsets;
+  float v[S];
+  int at[kKeep ? D : 1];
+  unsigned par = 0, sx = 0, m1 = MAG_INF, m2 = MAG_INF;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    if (D == 0 && i >= deg) break;
+    const int4 ed = g.red[i];
+    const int zl = g.lane(ed, z);
+    const float t = g.totals[ed.x + zl];
+    const int m = ed.y + zl;
+    if constexpr (kKeep) at[i] = m;
+    par ^= __float_as_uint(t);
+    const float ve = first ? t : __fsub_rn(t, stored<BF16>(g.msgs[m]));
+    v[i] = ve;
+    const unsigned b = __float_as_uint(ve);
+    const unsigned mg = b & MAG_MASK;
+    sx ^= b;
+    if (i == 0) {
+      m1 = mg;
+    } else {
+      m2 = min(m2, max(m1, mg));
+      m1 = min(m1, mg);
+    }
+  }
+  float m1f, m2f;
+  if (offset_rule) {
+    m1f = fmaxf(__fsub_rn(__uint_as_float(m1), beta), 0.0f);
+    m2f = fmaxf(__fsub_rn(__uint_as_float(m2), beta), 0.0f);
+  } else {
+    m1f = __fmul_rn(alpha_t, __uint_as_float(m1));
+    m2f = __fmul_rn(alpha_t, __uint_as_float(m2));
+  }
+  const unsigned ssign = sx & SIGN_BIT;
+  const unsigned m1s = __float_as_uint(m1f) ^ ssign;
+  const unsigned m2s = __float_as_uint(m2f) ^ ssign;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    if (D == 0 && i >= deg) break;
+    const unsigned b = __float_as_uint(v[i]);
+    const float m = __uint_as_float(((b & MAG_MASK) == m1 ? m2s : m1s) ^ (b & SIGN_BIT));
+    if constexpr (kKeep)
+      g.msgs[at[i]] = m;
+    else
+      g.message(i, z) = m;
+  }
+  return par;
+}
+
+// min_sum_row at the row's own degree, 3 to 10 (the plan deals the rows in
+// descending degree, so a warp's items mostly share one), other degrees at
+// MAX_DEG slots.
+template <bool BF16>
+__device__ __forceinline__ unsigned min_sum_row_at_degree(const ColumnEdges& g, int deg,
+                                                          int z, bool first, float alpha_t,
+                                                          int offset_rule, float beta) {
+#define FLOODING_ROW_EXACT(D) \
+  case D: return min_sum_row<BF16, D>(g, D, z, first, alpha_t, offset_rule, beta);
+  switch (deg) {
+    FLOODING_ROW_EXACT(3) FLOODING_ROW_EXACT(4) FLOODING_ROW_EXACT(5) FLOODING_ROW_EXACT(6)
+    FLOODING_ROW_EXACT(7) FLOODING_ROW_EXACT(8) FLOODING_ROW_EXACT(9) FLOODING_ROW_EXACT(10)
+    default:
+      return min_sum_row<BF16, 0>(g, deg, z, first, alpha_t, offset_rule, beta);
+  }
+#undef FLOODING_ROW_EXACT
+}
+
+// One codeword per block (layout 1).  The plan, from the wrapper: the edge
+// table in the order of the rows it deals (descending degree; each row's
+// edges in the reference's order), the column table (column, degree) in
+// descending degree, the row offsets, and each plane's first slot.  Message
+// phase: items (dealt row, check lane) as ColumnEdges; the min-sum family
+// by min_sum_row_at_degree, sum-product by message_item.  Column phase:
+// item (dealt column j, variable lane z) = flat index i = j*Z + z sums the
+// column's messages msgs[plane k + i] in ascending row order and stores
+// totals[i] = llr + sum; the channel LLR is read from shared memory where
+// `slots` holds it (2*nc + E), else from the input.  Shared memory:
+// FLOODING_SHARED_BYTES.
 template <bool SUM_PRODUCT, bool BF16>
 __global__ void __launch_bounds__(FLOODING_MAX_THREADS, 1)
 ldpc_flooding_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
                      int* __restrict__ ok_out, int* __restrict__ it_out,
-                     const int4* __restrict__ edges_g,
-                     const int* __restrict__ row_start_g,
-                     const int2* __restrict__ col_edges_g,
-                     const int* __restrict__ col_start_g, DecodeArgs a) {
+                     const int* __restrict__ plan_g, DecodeArgs a, int slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Z = a.Z, nc = a.nc, nr = a.nr, E = a.E;
   float* totals = reinterpret_cast<float*>(smem);
   float* msgs = totals + nc * Z;
-  int2* red = reinterpret_cast<int2*>(smem + align16((size_t)(nc + E) * Z * 4));
-  int2* ced = red + E;
-  int* row_start = reinterpret_cast<int*>(ced + E);
-  int* col_start = row_start + nr + 1;
+  float* chan = slots > nc + E ? msgs + E * Z : nullptr;  // the channel LLRs on chip
+  int4* red = reinterpret_cast<int4*>(smem + align16((size_t)slots * Z * 4));
+  int2* cols = reinterpret_cast<int2*>(red + E);
+  int* row_start = reinterpret_cast<int*>(cols + nc);
+  int* planes = row_start + nr + 1;
 
   const int t = threadIdx.x, T = blockDim.x;
   const size_t cw = blockIdx.x;
-
-  for (int i = t; i < E; i += T) {
-    const int4 ed = edges_g[i];
-    red[i] = make_int2(ed.x, ed.y);
-    ced[i] = col_edges_g[i];
-  }
-  for (int i = t; i <= nr; i += T) row_start[i] = row_start_g[i];
-  for (int i = t; i <= nc; i += T) col_start[i] = col_start_g[i];
+  const int4* plan_edges = reinterpret_cast<const int4*>(plan_g);
+  const int2* plan_cols = reinterpret_cast<const int2*>(plan_edges + E);
+  const int* plan_rows = reinterpret_cast<const int*>(plan_cols + nc);
+  for (int i = t; i < E; i += T) red[i] = plan_edges[i];
+  for (int i = t; i < nc; i += T) cols[i] = plan_cols[i];
+  for (int i = t; i < nr + 1 + MAX_COLUMN_DEGREE + 1; i += T) row_start[i] = plan_rows[i];
 
   const float* src = llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z);
   {
     ItemWalk w(t, T, Z);
-    for (int i = t; i < nc * Z; i += T, w.next())
-      totals[i] = channel_llr(src, w.major, w.lane, a);
+    for (int i = t; i < nc * Z; i += T, w.next()) {
+      const float v = channel_llr(src, plan_cols[w.major].x, w.lane, a);
+      totals[i] = v;
+      if (chan) chan[i] = v;
+    }
   }
   __syncthreads();
 
-  int ok = 0;
-  int used = a.iterations;
   for (int it = 0;; ++it) {
     // Message phase with the fused syndrome; the pass at it == iterations
     // only checks.  Early termination acts on every vote, a run to budget on
@@ -381,39 +517,45 @@ ldpc_flooding_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
         const float alpha_t = it < a.n0 ? a.alpha0 : a.alpha;
         for (int i = t; i < nr * Z; i += T, w.next()) {
           const int e0 = row_start[w.major];
-          bad |= message_item<SUM_PRODUCT, BF16>(
-              LocalEdges{totals, msgs + (size_t)e0 * Z + w.lane, red + e0, Z},
-              row_start[w.major + 1] - e0, w.lane, first, alpha_t, a.offset_rule, a.beta);
+          const ColumnEdges g{totals, msgs, red + e0, Z};
+          const int deg = row_start[w.major + 1] - e0;
+          if constexpr (SUM_PRODUCT)
+            bad |= message_item<true, false>(g, deg, w.lane, first, alpha_t, a.offset_rule,
+                                             a.beta);
+          else
+            bad |= min_sum_row_at_degree<BF16>(g, deg, w.lane, first, alpha_t, a.offset_rule,
+                                               a.beta);
         }
       } else {
         for (int i = t; i < nr * Z; i += T, w.next()) {
           const int e0 = row_start[w.major];
-          bad |= parity_item(LocalEdges{totals, msgs, red + e0, Z},
+          bad |= parity_item(ColumnEdges{totals, msgs, red + e0, Z},
                              row_start[w.major + 1] - e0, w.lane);
         }
       }
     }
-    if (!__syncthreads_or(bad & SIGN_BIT) && (a.early_termination || !update)) {
-      ok = 1; // uniform over the block
-      if (a.early_termination) used = it;
+    // uniform over the block; the results are written here, so that nothing
+    // is held across the sweeps for them
+    const bool pass = !__syncthreads_or(bad & SIGN_BIT);
+    if ((pass && a.early_termination) || !update) {
+      if (t == 0) {
+        ok_out[cw] = pass;
+        it_out[cw] = pass && a.early_termination ? it : a.iterations;
+      }
       break;
     }
-    if (!update) break;
 
-    // Column phase: totals = llr + the column's messages in row order.
+    // Column phase: totals = llr + the column's messages, plane by plane
+    // (ascending row order).
     {
       ItemWalk w(t, T, Z);
       for (int i = t; i < nc * Z; i += T, w.next()) {
-        const float v = channel_llr(src, w.major, w.lane, a);
-        const int k1 = col_start[w.major + 1];
-        int k = col_start[w.major];
-        int2 ce = ced[k];
-        float sum = msgs[ce.x + unrot(w.lane, ce.y, Z)];
+        const int2 col = cols[w.major];  // (column, degree)
+        const float v = chan ? chan[i] : channel_llr(src, col.x, w.lane, a);
+        const float* m = msgs + i;
+        float sum = m[0];
 #pragma unroll 4
-        for (++k; k < k1; ++k) {
-          ce = ced[k];
-          sum = __fadd_rn(sum, msgs[ce.x + unrot(w.lane, ce.y, Z)]);
-        }
+        for (int k = 1; k < col.y; ++k) sum = __fadd_rn(sum, m[planes[k]]);
         totals[i] = __fadd_rn(v, sum);
       }
     }
@@ -421,10 +563,12 @@ ldpc_flooding_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
   }
 
   int8_t* dst = bits + cw * (size_t)(a.out_cols * Z);
-  for (int i = t; i < a.out_cols * Z; i += T) dst[i] = totals[i] < 0.0f;
-  if (t == 0) {
-    ok_out[cw] = ok;
-    it_out[cw] = used;
+  {
+    ItemWalk w(t, T, Z);
+    for (int i = t; i < nc * Z; i += T, w.next()) {
+      const int c = cols[w.major].x;
+      if (c < a.out_cols) dst[c * Z + w.lane] = totals[i] < 0.0f;
+    }
   }
 }
 
@@ -768,7 +912,8 @@ extern "C" int ldpc_flooding_max_z() { return MAX_THREADS; }
 extern "C" int ldpc_flooding_max_shared_bytes() { return max_shared_bytes_optin(); }
 
 // Dynamic shared memory of one block, by `layout`: for P = 1
-// FLOODING_SHARED_BYTES (1: one block per codeword) or
+// FLOODING_SHARED_BYTES (1: one block per codeword; `slots_max`: its Z-lane
+// float slots, 2*nc + E with the channel LLRs on chip, else nc + E) or
 // FLOODING_CLUSTER_SHARED_BYTES for a cluster of `layout` blocks per
 // codeword (2 to MAX_CLUSTER; `slots_max`: the most Z-lane slots, totals
 // and messages, a block of it holds); for P > 1 FLOODING_PACKED_SHARED_BYTES
@@ -777,7 +922,7 @@ extern "C" int ldpc_flooding_shared_bytes(int Z, int nc, int nr, int E, int P,
                                           int layout, int slots_max) {
   if (P > 1) return (int)FLOODING_PACKED_SHARED_BYTES(Z, nc, nr, E, P, layout == 1);
   if (layout >= 2) return (int)FLOODING_CLUSTER_SHARED_BYTES(Z, nc, nr, E, slots_max);
-  return (int)FLOODING_SHARED_BYTES(Z, nc, nr, E);
+  return (int)FLOODING_SHARED_BYTES(Z, nc, nr, E, slots_max);
 }
 
 // The instantiation that serves (rule, message type, P, layout), and its
@@ -802,7 +947,7 @@ struct Plans {
   const int* row_start;
   const int2* col_edges;
   const int* col_start;
-  const int* cluster_plan;
+  const int* plan;  // the one-codeword kernel's or the cluster's
 };
 
 template <bool SUM_PRODUCT, bool BF16>
@@ -836,12 +981,11 @@ static cudaError_t launch(const void* llr, void* bits, void* ok, void* iters,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(&cfg, ldpc_flooding_cluster_kernel<SUM_PRODUCT, BF16>,
-                              x, y, (int*)ok, (int*)iters, g.row_start, g.cluster_plan,
+                              x, y, (int*)ok, (int*)iters, g.row_start, g.plan,
                               a, slots_max);
   } else {
     ldpc_flooding_kernel<SUM_PRODUCT, BF16><<<ncw, threads, smem_bytes, s>>>(
-        x, y, (int*)ok, (int*)iters, g.edges, g.row_start, g.col_edges,
-        g.col_start, a);
+        x, y, (int*)ok, (int*)iters, g.plan, a, slots_max);
   }
   return cudaSuccess;
 }
@@ -881,13 +1025,15 @@ extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
 // Launches the decoder for `ncw` codewords on `stream`.  `edges` / `row_start`
 // is the row plan in ascending row order, `col_edges` / `col_start` the
 // column plan (per column, (message slot * Z, shift) of its edges in
-// ascending row order; slot = the edge's position in the row plan).  `rule`
+// ascending row order; slot = the edge's position in the row plan): the
+// packed kernel's plans (the cluster kernel reads `row_start` too).  `rule`
 // is 0 (min-sum), 1 (offset-min-sum) or 2 (sum-product); `bf16_messages`
 // rounds the messages to bfloat16 where they are read back (min-sum family
 // only).  `codewords_per_block` P = 1 runs one codeword per block (`layout`
-// 1) or per cluster of `layout` blocks (2 to MAX_CLUSTER, shared by
-// `cluster_plan`, ops/decoder_cuda.py::_cluster_plan; `slots_max` the most
-// slots a block holds), messages in shared memory, `c2v` null.
+// 1, `plan` ops/decoder_cuda.py::_one_block_plan, `slots_max` its float
+// slots) or per cluster of `layout` blocks (2 to MAX_CLUSTER, `plan`
+// ops/decoder_cuda.py::_cluster_plan; `slots_max` the most slots a block
+// holds), messages in shared memory, `c2v` null.
 // P > 1 runs ceil(ncw / P) blocks of the packed kernel, messages in shared
 // memory (`layout` 1, `c2v` null) or in the scratch `c2v` (`layout` 0: P*E*Z
 // floats per block).  `threads` threads per block.  Does not synchronise and
@@ -895,7 +1041,7 @@ extern "C" int ldpc_flooding_blocks_per_sm(int rule, int bf16_messages,
 extern "C" int ldpc_flooding_decode(
     const void* llr, void* bits, void* ok, void* iters, void* c2v,
     const void* edges, const void* row_start, const void* col_edges,
-    const void* col_start, const void* cluster_plan, int ncw, int Z, int nc, int nr,
+    const void* col_start, const void* plan, int ncw, int Z, int nc, int nr,
     int E, int out_cols, int d_input, int fill_lo, int fill_hi, int iterations,
     int early_termination, int rule, int bf16_messages,
     int codewords_per_block, int layout, int threads, int slots_max,
@@ -905,6 +1051,8 @@ extern "C" int ldpc_flooding_decode(
   if (rule < RULE_MIN_SUM || rule > RULE_SUM_PRODUCT) return (int)cudaErrorInvalidValue;
   if (rule == RULE_SUM_PRODUCT && bf16_messages) return (int)cudaErrorInvalidValue;
   if ((P > 1 && layout == 0) != (c2v != nullptr)) return (int)cudaErrorInvalidValue;
+  if (P == 1 && layout == 1 && slots_max != nc + E && slots_max != 2 * nc + E)
+    return (int)cudaErrorInvalidValue;
   DecodeArgs a;
   a.Z = Z; a.nc = nc; a.nr = nr; a.E = E; a.out_cols = out_cols;
   a.d_input = d_input; a.fill_lo = fill_lo; a.fill_hi = fill_hi;
@@ -918,7 +1066,7 @@ extern "C" int ldpc_flooding_decode(
   if (err != cudaSuccess) return (int)err;
   const Plans g = {(const int4*)edges, (const int*)row_start,
                    (const int2*)col_edges, (const int*)col_start,
-                   (const int*)cluster_plan};
+                   (const int*)plan};
   const cudaStream_t st = (cudaStream_t)stream;
   if (rule == RULE_SUM_PRODUCT)
     err = launch<true, false>(llr, bits, ok, iters, c2v, g, ncw, P, layout, threads,

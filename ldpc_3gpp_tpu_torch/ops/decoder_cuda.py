@@ -25,11 +25,14 @@ The flooding kernels run each sweep as a message phase over every (row,
 lane) item and a column phase over every (column, lane) item, with up to
 1,024 threads per block and the messages in shared memory where they fit;
 the packed one deals the items of the codewords still running over the whole
-block.  The wrapper gives them the column plan (``_column_plan``), their
-block size (``flooding_threads``) and their layout (``flooding_layout``: one
-block per codeword where that holds it, else a thread block cluster;
-``packed_flooding_layout``: the P codewords' messages on chip where they fit,
-else in a global scratch).  No choice changes a result.
+block.  The wrapper gives them their plans (``_one_block_plan``: rows and
+columns dealt in descending degree, the messages in column planes;
+``_cluster_plan``; the packed kernel's ``_column_plan``), their block size
+(``flooding_threads``) and their layout (``flooding_layout``: one block per
+codeword where that holds it, with the channel LLRs on chip where they still
+fit, else a thread block cluster; ``packed_flooding_layout``: the P
+codewords' messages on chip where they fit, else in a global scratch).  No
+choice changes a result.
 """
 from __future__ import annotations
 
@@ -152,18 +155,43 @@ def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1,
     """Dynamic shared memory of one block of ``P`` codewords: the formula of
     ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered: totals per
     codeword; edge table; row offsets; P > 1: a flag word per codeword.
-    Flooding, one codeword per block: FLOODING_SHARED_BYTES, the totals and
-    the E*Z messages (float32), row and column plans and their offsets (it
-    may exceed what a block has: then ``flooding_layout`` takes a cluster).
-    Flooding, P > 1: FLOODING_PACKED_SHARED_BYTES, the same per codeword
-    (without the messages unless ``on_chip``) and four vote words per
-    codeword and two per block (flags and live lists, by sweep)."""
+    Flooding, one codeword per block: FLOODING_SHARED_BYTES, the totals, the
+    E*Z messages and, where that still fits a block, the channel LLRs
+    (float32; ``one_block_slots``), then the plan (``_one_block_plan``: an
+    int4 per edge, an int2 per column, the row offsets and the planes'
+    offsets); it may exceed what a block has: then ``flooding_layout`` takes
+    a cluster.  Flooding, P > 1: FLOODING_PACKED_SHARED_BYTES, the totals
+    per codeword (and the messages if ``on_chip``), row and column plans and
+    their offsets, and four vote words per codeword and two per block (flags
+    and live lists, by sweep)."""
     if schedule == "flooding":
         if P == 1:
-            return _align16((nc + E) * Z * 4) + E * 16 + (nr + nc + 2) * 4
+            return _one_block_bytes(Z, nc, nr, E, one_block_slots(Z, nc, nr, E))
         return (_align16(P * (nc + (E if on_chip else 0)) * Z * 4) + E * 16
                 + (nr + nc + 2) * 4 + P * 16 + 8)
     return _align16(P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
+
+
+# The densest column a one-codeword block's plan has room for
+# (MAX_COLUMN_DEGREE in csrc/ldpc_flooding.cu; BG1's column 0 has 30 edges).
+MAX_COLUMN_DEGREE = 31
+
+
+def _one_block_bytes(Z: int, nc: int, nr: int, E: int, slots: int) -> int:
+    """FLOODING_SHARED_BYTES: ``slots`` Z-lane float slots, the edge table
+    (16 bytes an edge), the column table (8 bytes a column), the row offsets
+    and the planes' offsets."""
+    return (_align16(slots * Z * 4) + 16 * E + 8 * nc + 4 * (nr + 1)
+            + 4 * (MAX_COLUMN_DEGREE + 1))
+
+
+def one_block_slots(Z: int, nc: int, nr: int, E: int) -> int:
+    """The Z-lane float slots of a one-codeword flooding block: the totals
+    and the messages (nc + E), and the channel LLRs (nc more) where the block
+    then still fits, so that the column phase reads them on chip."""
+    slots = 2 * nc + E
+    fits = _one_block_bytes(Z, nc, nr, E, slots) <= MAX_BLOCK_SHARED_BYTES
+    return slots if fits else nc + E
 
 
 # 32-bit words per (row, lane) of the layered min-sum family's compressed
@@ -198,10 +226,10 @@ def scratch_shape(params: LDPCParams, n: int, schedule: str = "layered",
 
 
 def flooding_on_chip(params: LDPCParams) -> bool:
-    """Whether totals, all messages and the plans of one codeword fit one
+    """Whether totals, all messages and the plan of one codeword fit one
     block (BG2 Z <= 224, BG1 Z <= 144)."""
-    return shared_bytes("flooding", params.Z_c, params.num_cols, params.num_rows,
-                        len(params.edges[0])) <= MAX_BLOCK_SHARED_BYTES
+    Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    return _one_block_bytes(Z, nc, nr, E, nc + E) <= MAX_BLOCK_SHARED_BYTES
 
 
 # Where a block of a cluster keeps a column's messages and its total, in the
@@ -326,9 +354,10 @@ def _cluster_plan(params: LDPCParams, size: int) -> np.ndarray:
 
 def flooding_shared_bytes(params: LDPCParams, layout: int, P: int = 1) -> int:
     """Dynamic shared memory of one block of a flooding kernel in
-    ``layout``: one codeword per block, FLOODING_SHARED_BYTES, or for a
-    cluster FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu (the
-    most slots a block of it holds, then the tables); P > 1,
+    ``layout``: one codeword per block, FLOODING_SHARED_BYTES (the channel
+    LLRs on chip where they fit), or for a cluster
+    FLOODING_CLUSTER_SHARED_BYTES of csrc/ldpc_flooding.cu (the most slots a
+    block of it holds, then the tables); P > 1,
     FLOODING_PACKED_SHARED_BYTES with the messages on chip (layout 1) or in
     a scratch (layout 0)."""
     Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
@@ -484,7 +513,7 @@ def _graph_plan(params: LDPCParams, row_seq) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _column_plan(params: LDPCParams) -> tuple:
-    """Numpy column plan of the one-codeword flooding kernel.
+    """Numpy column plan of the packed flooding kernel.
 
     col_edges (E, 2) int32: [slot*Z, shift] of each column's edges in
     ascending row order, slot = the edge's position in the ascending-row
@@ -503,6 +532,52 @@ def _column_plan(params: LDPCParams) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def _one_block_plan(params: LDPCParams) -> np.ndarray:
+    """The int32 plan the one-codeword flooding kernel takes:
+
+    - the edge table [E, 4] in the order the message phase deals the rows
+      (descending degree, ties in ascending row order; each row's edges in
+      the reference's order): (offset of the column's totals + shift, offset
+      of the edge's message + shift, Z - shift, 0), offsets in Z-lane floats
+      of the block's totals and messages;
+    - the column table [nc, 2] in the order the column phase deals the
+      columns (descending degree, ties ascending): (column, degree); a
+      column's totals are at its position in this table times Z;
+    - the row offsets [nr + 1] of the dealt rows in the edge table;
+    - the planes' first slots [MAX_COLUMN_DEGREE + 1] (E*Z past the last
+      plane): plane k holds the message of the k-th edge, in ascending row
+      order, of every column of more than k edges, in the column table's
+      order, so that edge k of the column at position j is at plane k +
+      j*Z, lane by lane."""
+    edges, row_start, _ = _graph_plan(params, tuple(range(params.num_rows)))
+    Z, nc, E = params.Z_c, params.num_cols, len(edges)
+    cols, shifts = edges[:, 0] // Z, edges[:, 1]
+    row_deg, col_deg = np.diff(row_start), np.bincount(cols, minlength=nc)
+    if col_deg.max() > MAX_COLUMN_DEGREE:
+        raise ValueError(f"a column of {col_deg.max()} edges: at most {MAX_COLUMN_DEGREE}")
+    col_order = np.argsort(-col_deg, kind="stable")
+    position = np.empty(nc, dtype=np.int64)
+    position[col_order] = np.arange(nc)
+    planes = np.full(MAX_COLUMN_DEGREE + 1, E * Z, dtype=np.int64)
+    planes[:col_deg.max() + 1] = Z * np.concatenate(
+        [[0], np.cumsum([(col_deg > k).sum() for k in range(col_deg.max())])])
+    # each edge's rank among its column's edges: the edges are in ascending
+    # row order, so a running count per column
+    rank = np.zeros(E, dtype=np.int64)
+    seen = np.zeros(nc, dtype=np.int64)
+    for e, c in enumerate(cols):
+        rank[e], seen[c] = seen[c], seen[c] + 1
+    row_order = np.argsort(-row_deg, kind="stable")
+    dealt = np.concatenate([np.arange(row_start[r], row_start[r + 1]) for r in row_order])
+    j = position[cols[dealt]]
+    s = shifts[dealt].astype(np.int64)
+    table = np.stack([j * Z + s, planes[rank[dealt]] + j * Z + s, Z - s, 0 * s], axis=1)
+    col_table = np.stack([col_order, col_deg[col_order]], axis=1)
+    dealt_start = np.concatenate([[0], np.cumsum(row_deg[row_order])])
+    return np.concatenate([table.ravel(), col_table.ravel(), dealt_start, planes]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
 def _graph_device(params: LDPCParams, row_seq, device: torch.device):
     """Device copies of the graph arrays, cached per (params, order, device)."""
     edges, row_start, _ = _graph_plan(params, row_seq)
@@ -513,19 +588,28 @@ def _graph_device(params: LDPCParams, row_seq, device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
-def _flooding_device(params: LDPCParams, layout: int, device: torch.device):
+def _flooding_device(params: LDPCParams, layout: int, P: int, device: torch.device):
     """Device copies of what the flooding kernels take beside the row plan:
-    the column plan and the cluster plan (a placeholder word without a
-    cluster)."""
-    plan = _cluster_plan(params, layout) if layout >= 2 else np.zeros(1, np.int32)
+    the column plan (the packed kernel's) and the plan of the one-codeword
+    form, for one block (``_one_block_plan``) or a cluster
+    (``_cluster_plan``); a placeholder word for the packed kernel."""
+    if P > 1:
+        plan = np.zeros(1, np.int32)
+    else:
+        plan = _cluster_plan(params, layout) if layout >= 2 else _one_block_plan(params)
     return tuple(torch.from_numpy(a).to(device).contiguous()
                  for a in (*_column_plan(params), plan))
 
 
-def _cluster_slots(params: LDPCParams, layout: int) -> int:
-    """The most slots a block of the layout's cluster holds, or 0 without
-    one."""
-    return _cluster_split(params, layout)[2] if layout >= 2 else 0
+def _block_slots(params: LDPCParams, layout: int, P: int = 1) -> int:
+    """The Z-lane float slots a block of a one-codeword launch holds (one
+    block: ``one_block_slots``; a cluster: the most a block of it holds), or
+    0 for a packed launch."""
+    if P > 1:
+        return 0
+    if layout >= 2:
+        return _cluster_split(params, layout)[2]
+    return one_block_slots(params.Z_c, params.num_cols, params.num_rows, len(params.edges[0]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -582,7 +666,8 @@ def blocks_per_sm(params: LDPCParams, schedule: str = "layered",
     if schedule == "flooding":
         shape = launch_shape(params, n, schedule, codewords_per_block,
                              _sm_count(torch.device("cuda", torch.cuda.current_device())))
-        args += [shape["layout"], shape["threads"], _cluster_slots(params, shape["layout"])]
+        args += [shape["layout"], shape["threads"],
+                 _block_slots(params, shape["layout"], shape["codewords_per_block"])]
     n = getattr(_library(name), name + "_blocks_per_sm")(*args)
     if n < 0:
         raise RuntimeError(f"{name}_blocks_per_sm failed: CUDA error {-n}")
@@ -812,7 +897,7 @@ def decode(
         shape["threads"] = int(_threads)  # the kernel checks it
     if flooding:
         need = lib.ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout,
-                                              _cluster_slots(params, layout))
+                                              _block_slots(params, layout, P))
         assert need == flooding_shared_bytes(params, layout, P)
     else:
         need = lib.ldpc_layered_shared_bytes(Z, nc, nr, E, P)
@@ -826,7 +911,7 @@ def decode(
         )
     plans = _graph_device(params, row_seq, dev)
     if flooding:
-        plans += _flooding_device(params, layout, dev)
+        plans += _flooding_device(params, layout, P, dev)
     bits = torch.empty((n, out_cols * Z), dtype=torch.int8, device=dev)
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     iters = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -842,7 +927,7 @@ def decode(
         assert (scratch is not None) == (layout == LAYOUT_SCRATCH and (P > 1 or not flooding))
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
-        block = ([P, layout, shape["threads"], _cluster_slots(params, layout)]
+        block = ([P, layout, shape["threads"], _block_slots(params, layout, P)]
                  if flooding else [P])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream

@@ -46,16 +46,22 @@ families:
     change);
   - ``no_message_stores``: the message phase computes, but a sink takes its
     ``deg`` stores of new messages;
-  - ``channel_on_chip``: the channel LLRs copied into shared memory once per
-    block and read there by the column phase (exact);
-  - ``no_rotation``: ``rot`` and ``unrot`` as the identity;
-  - ``sorted_deal``: rows and columns dealt in descending degree (exact:
-    the items of a sweep are independent, and each column still sums in
-    ascending row order);
+  - ``no_rotation``: every edge at its check lane (no rotation);
+  - ``channel_from_input``: the column phase reads the channel LLRs from
+    the input, not from shared memory (exact);
+  - ``max_deg_rows``: every row at MAX_DEG slots left at its degree, not
+    unrolled to its own degree (exact);
   - ``no_vote``: the vote's ``__syncthreads_or`` made a plain barrier;
   - ``threads_64`` ... ``threads_256``: the kernel at other block sizes than
     the rule's, through ``decode``'s internal ``_threads`` (the largest
     batch only).
+
+  The kernel's form before this one (each row's messages by check lane in
+  row order, the column phase reading them through a column plan and a
+  rotation, the channel LLRs re-read from the input, rows dealt in
+  ascending order) was taken apart by this family with ``no_message_stores``,
+  ``channel_on_chip``, ``no_rotation``, ``sorted_deal`` and ``no_vote``
+  (PERF.md §6).
 
 Every variant that is not exact computes wrong bits; only their times mean
 anything, so every variant is timed run to the budget (the same work
@@ -137,88 +143,36 @@ REPS = {256: (10, 5), 8192: (2, 3)}
 ONE_BLOCK_FOLDER = "flooding_one_block"
 _OB_NO_COLUMN_PHASE = (
     SOURCE,
-    "    // Column phase: totals = llr + the column's messages in row order.\n"
+    "    // Column phase: totals = llr + the column's messages, plane by plane\n"
+    "    // (ascending row order).\n"
     "    {\n      ItemWalk w(t, T, Z);\n"
     "      for (int i = t; i < nc * Z; i += T, w.next()) {\n",
-    "    // Column phase: totals = llr + the column's messages in row order.\n"
+    "    // Column phase: totals = llr + the column's messages, plane by plane\n"
+    "    // (ascending row order).\n"
     "    {\n      ItemWalk w(t, T, Z);\n"
     "      for (int i = t; i < 0; i += T, w.next()) {\n", 1)
 _OB_NO_MESSAGE_STORES = (
-    SOURCE, "        g.message(i, z) = __uint_as_float(mag ^ (b & SIGN_BIT));\n",
-    "        asm volatile(\"\" ::\"r\"(mag ^ (b & SIGN_BIT)));\n", 1)
-# the channel LLRs in a static array of nc * Z floats (BG2 Z=20: 1,040)
-_OB_CHANNEL_ARRAY = (
-    SOURCE, "  float* totals = reinterpret_cast<float*>(smem);\n  float* msgs = totals + nc * Z;\n",
-    "  __shared__ float chan_s[1040];\n"
-    "  float* totals = reinterpret_cast<float*>(smem);\n  float* msgs = totals + nc * Z;\n", 1)
-_OB_CHANNEL_FILL = (SOURCE, "      totals[i] = channel_llr(src, w.major, w.lane, a);\n",
-                    "      totals[i] = chan_s[i] = channel_llr(src, w.major, w.lane, a);\n", 1)
-_OB_CHANNEL_READ = (SOURCE, "        const float v = channel_llr(src, w.major, w.lane, a);\n",
-                    "        const float v = chan_s[i];\n", 1)
-_OB_NO_ROT = (HEADER, "  int idx = z + shift;\n  return idx >= Z ? idx - Z : idx;\n",
-              "  return z;\n", 1)
-_OB_NO_UNROT = (SOURCE, "  const int idx = z - shift;\n  return idx < 0 ? idx + Z : idx;\n",
-                "  return z;\n", 1)
-# descending degree, stable, by thread 0 after the plans are loaded
-_OB_DEAL_ORDER = (
-    SOURCE, "  __syncthreads();\n\n  int ok = 0;\n",
-    "  __shared__ int deal_rows[64], deal_cols[128];\n"
-    "  __syncthreads();\n"
-    "  if (t == 0) {\n"
-    "    for (int r = 0; r < nr; ++r) {\n"
-    "      const int d = row_start[r + 1] - row_start[r];\n"
-    "      int k = r;\n"
-    "      for (; k > 0 && row_start[deal_rows[k - 1] + 1] - row_start[deal_rows[k - 1]] < d; --k)\n"
-    "        deal_rows[k] = deal_rows[k - 1];\n"
-    "      deal_rows[k] = r;\n"
-    "    }\n"
-    "    for (int c = 0; c < nc; ++c) {\n"
-    "      const int d = col_start[c + 1] - col_start[c];\n"
-    "      int k = c;\n"
-    "      for (; k > 0 && col_start[deal_cols[k - 1] + 1] - col_start[deal_cols[k - 1]] < d; --k)\n"
-    "        deal_cols[k] = deal_cols[k - 1];\n"
-    "      deal_cols[k] = c;\n"
-    "    }\n"
-    "  }\n"
-    "  __syncthreads();\n\n  int ok = 0;\n", 1)
-_OB_DEAL_ROWS = (
-    SOURCE,
-    "          const int e0 = row_start[w.major];\n"
-    "          bad |= message_item<SUM_PRODUCT, BF16>(\n"
-    "              LocalEdges{totals, msgs + (size_t)e0 * Z + w.lane, red + e0, Z},\n"
-    "              row_start[w.major + 1] - e0, w.lane, first, alpha_t, a.offset_rule, a.beta);\n",
-    "          const int r = deal_rows[w.major];\n"
-    "          const int e0 = row_start[r];\n"
-    "          bad |= message_item<SUM_PRODUCT, BF16>(\n"
-    "              LocalEdges{totals, msgs + (size_t)e0 * Z + w.lane, red + e0, Z},\n"
-    "              row_start[r + 1] - e0, w.lane, first, alpha_t, a.offset_rule, a.beta);\n", 1)
-_OB_DEAL_COLS = (
-    SOURCE,
-    "        const float v = channel_llr(src, w.major, w.lane, a);\n"
-    "        const int k1 = col_start[w.major + 1];\n"
-    "        int k = col_start[w.major];\n",
-    "        const int c = deal_cols[w.major];\n"
-    "        const float v = channel_llr(src, c, w.lane, a);\n"
-    "        const int k1 = col_start[c + 1];\n"
-    "        int k = col_start[c];\n", 1)
-_OB_DEAL_TOTALS = (SOURCE, "        totals[i] = __fadd_rn(v, sum);\n",
-                   "        totals[c * Z + w.lane] = __fadd_rn(v, sum);\n", 1)
+    SOURCE, "    if constexpr (kKeep)\n      g.msgs[at[i]] = m;\n    else\n      g.message(i, z) = m;\n",
+    "    asm volatile(\"\" ::\"f\"(m));\n", 1)
+_OB_NO_ROTATION = (SOURCE, "    return z >= ed.z ? z - Z : z;\n", "    return z - ed.w;\n", 1)
+_OB_CHANNEL_FROM_INPUT = (
+    SOURCE, "  float* chan = slots > nc + E ? msgs + E * Z : nullptr;  // the channel LLRs on chip\n",
+    "  float* chan = nullptr;\n", 1)
+_OB_MAX_DEG_ROWS = (SOURCE, "  switch (deg) {\n    FLOODING_ROW_EXACT(3)",
+                    "  switch (0) {\n    FLOODING_ROW_EXACT(3)", 1)
 _OB_NO_VOTE = (
-    SOURCE,
-    "    if (!__syncthreads_or(bad & SIGN_BIT) && (a.early_termination || !update)) {\n"
-    "      ok = 1; // uniform over the block\n",
-    "    asm volatile(\"\" ::\"r\"(bad));\n    __syncthreads();\n    if (!update) {\n"
-    "      ok = 1; // uniform over the block\n", 1)
+    SOURCE, "    const bool pass = !__syncthreads_or(bad & SIGN_BIT);\n",
+    "    asm volatile(\"\" ::\"r\"(bad));\n    __syncthreads();\n    const bool pass = false;\n", 1)
 ONE_BLOCK_VARIANTS = {
     "kernel": (),
     "no_column_phase": (_OB_NO_COLUMN_PHASE,),
     "no_message_stores": (_OB_NO_MESSAGE_STORES,),
-    "channel_on_chip": (_OB_CHANNEL_ARRAY, _OB_CHANNEL_FILL, _OB_CHANNEL_READ),
-    "no_rotation": (_OB_NO_ROT, _OB_NO_UNROT),
-    "sorted_deal": (_OB_DEAL_ORDER, _OB_DEAL_ROWS, _OB_DEAL_COLS, _OB_DEAL_TOTALS),
+    "no_rotation": (_OB_NO_ROTATION,),
+    "channel_from_input": (_OB_CHANNEL_FROM_INPUT,),
+    "max_deg_rows": (_OB_MAX_DEG_ROWS,),
     "no_vote": (_OB_NO_VOTE,),
 }
-ONE_BLOCK_EXACT = ("kernel", "channel_on_chip", "sorted_deal")
+ONE_BLOCK_EXACT = ("kernel", "channel_from_input", "max_deg_rows")
 ONE_BLOCK_ENTRY = "_Z20ldpc_flooding_kernelILb0ELb0EE"  # <min-sum, float32>
 ONE_BLOCK_SHAPE = dict(BG=2, A=100, G=200, Q_m=2)
 ONE_BLOCK_ESN0_DB = 2.0
@@ -253,7 +207,8 @@ def _blocks_per_sm(lib, params, kw, threads) -> int:
     bf16 = int(kw.get("message_dtype") == "bfloat16")
     return lib.ldpc_flooding_blocks_per_sm(
         decoder_cuda._RULE_CODES[kw["algorithm"]], bf16, 1, params.Z_c, params.num_cols,
-        params.num_rows, len(params.edges[0]), decoder_cuda.LAYOUT_ON_CHIP, threads, 0)
+        params.num_rows, len(params.edges[0]), decoder_cuda.LAYOUT_ON_CHIP, threads,
+        decoder_cuda._block_slots(params, decoder_cuda.LAYOUT_ON_CHIP))
 
 
 def probe(device, batches=None, family: str = "cluster") -> dict:

@@ -230,8 +230,8 @@ def test_the_config1_cell_derives_config1s_code():
 def test_the_config1_cell_launches_one_codeword_per_flooding_block():
     """At the cell's batch (and its sample's path, a whole step) the
     automatic rule gives the one-codeword flooding kernel on an H100's 132
-    SMs: one 96-thread block per codeword (layout 1), unpacked, never the
-    cluster form; the sample
+    SMs: one 128-thread block per codeword (layout 1, eight per SM),
+    unpacked, never the cluster form; the sample
     compares 1,024 TBs and the oracle 64."""
     spec = cells.cell(CONFIG1_CELL)
     cfg = cells.chain_config(spec["configuration"])
@@ -244,7 +244,7 @@ def test_the_config1_cell_launches_one_codeword_per_flooding_block():
     for n in (traffic["batch_per_step"], traffic["sample_path_tbs"]):
         shape = decoder_cuda.launch_shape(p, n * p.C, cfg.schedule, cfg.codewords_per_block,
                                           132)
-        assert shape == dict(codewords_per_block=1, threads=96, layout=1), shape
+        assert shape == dict(codewords_per_block=1, threads=128, layout=1), shape
     # the elements of the step's largest tensors stay under 2**31
     assert traffic["batch_per_step"] * p.num_cols * p.Z_c < 2 ** 31
     assert set(spec["control"]["chain"]) <= set(run.HARNESS_FIELDS)

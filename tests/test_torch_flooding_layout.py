@@ -30,8 +30,10 @@ def _c_shared_bytes():
     m = re.search(r"#define FLOODING_SHARED_BYTES\((.*?)\)(.*?)\n\n", _source(), re.S)
     names = [a.strip() for a in m.group(1).split(",")]
     body = m.group(2).replace("\\\n", " ").replace("(size_t)", "")
+    deg = int(re.search(r"#define MAX_COLUMN_DEGREE (\d+)", _source()).group(1))
     return lambda *args: eval(  # noqa: S307 - the repository's own source
-        body, {"align16": lambda n: -(-n // 16) * 16}, dict(zip(names, args)))
+        body, {"align16": lambda n: -(-n // 16) * 16, "MAX_COLUMN_DEGREE": deg},
+        dict(zip(names, args)))
 
 
 @pytest.mark.parametrize("fields", [P2, BG1_Z384, BG2_Z52], ids=["bg2_z208", "bg1_z384", "bg2_z52"])
@@ -63,8 +65,10 @@ def test_column_plan_lists_each_column_in_row_order(fields):
 
 def test_shared_bytes_and_layout_rule_follow_the_cuda_source():
     """The wrapper's one-block formula equals the source's
-    FLOODING_SHARED_BYTES at every lifting size of both base graphs, and one
-    block holds a codeword exactly up to BG2 Z=224 and BG1 Z=144."""
+    FLOODING_SHARED_BYTES at every lifting size of both base graphs (its
+    float slots: the totals and messages, and the channel LLRs where they
+    fit), and one block holds a codeword exactly up to BG2 Z=224 and BG1
+    Z=144."""
     c_bytes = _c_shared_bytes()
     src = _source()
     assert f"#define FLOODING_MAX_THREADS {t_cuda.FLOODING_MAX_THREADS}" in src
@@ -74,8 +78,9 @@ def test_shared_bytes_and_layout_rule_follow_the_cuda_source():
         pt = TParams(**fields)
         nc, nr, E = pt.num_cols, pt.num_rows, len(pt.edges[0])
         for Z in ALL_LIFTING_SIZES:
-            assert t_cuda.shared_bytes("flooding", Z, nc, nr, E) == c_bytes(Z, nc, nr, E)
-            seen.add((pt.BG, Z, c_bytes(Z, nc, nr, E) <= t_cuda.MAX_BLOCK_SHARED_BYTES))
+            slots = t_cuda.one_block_slots(Z, nc, nr, E)
+            assert t_cuda.shared_bytes("flooding", Z, nc, nr, E) == c_bytes(Z, nc, nr, E, slots)
+            seen.add((pt.BG, Z, c_bytes(Z, nc, nr, E, nc + E) <= t_cuda.MAX_BLOCK_SHARED_BYTES))
     assert {(2, 224, True), (2, 240, False), (1, 144, True), (1, 160, False)} <= seen
     assert all(fits == (Z <= {1: 144, 2: 224}[bg]) for bg, Z, fits in seen)
     # the rule on a code's parameters is the same rule

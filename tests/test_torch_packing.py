@@ -135,7 +135,7 @@ def test_shared_bytes_formula():
     # cluster's tables)
     p = TParams(BG=1, A=8424, G=25272, Q_m=2)
     E = len(p.edges[0])
-    assert t_cuda.shared_bytes("flooding", 384, p.num_cols, p.num_rows, E) == 595_344
+    assert t_cuda.shared_bytes("flooding", 384, p.num_cols, p.num_rows, E) == 595_740
     assert t_cuda.flooding_layout(p) == 3 and t_cuda.flooding_shared_bytes(p, 3) == 218_364
     assert t_cuda.shared_bytes("layered", 384, p.num_cols, p.num_rows, E) == 109_692
     assert not t_cuda._fits("flooding", p, 2) and t_cuda._fits("flooding", p, 1)
