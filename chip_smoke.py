@@ -110,6 +110,9 @@ ITERATIONS = 12
 MAIN_BATCH = 1024
 MAIN_STEPS = 2
 MAIN_ESN0_DB = 1.0
+# a step of the flagship_headline benchmark cell: the launch its kernels-line
+# row V1-flagship is timed at and held to the plain version
+FLAGSHIP_CELL_BATCH = 32768
 
 # P2: the reference's headline configuration (plot_BLER_vs_SNR.m defaults;
 # golden/BLER_vs_SNR_BG2_A3842_R13_QPSK_8it_sumproduct.json): C=2, Z=208.
@@ -260,7 +263,7 @@ def phase_kernel_vs_plain(dev, tally):
         (LDPCParams(**FLAGSHIP), -0.75, -4.0, 48, False, False),
         (LDPCParams(BG=2, A=100, G=300, Q_m=2), 1.0, -6.0, 64, True, True),  # Z=20
         (LDPCParams(BG=2, A=400, G=1200, Q_m=2), 0.0, -6.0, 64, True, True),  # Z=52
-        (LDPCParams(BG=1, A=44, G=132, Q_m=1), 1.0, -6.0, 64, False, False),  # Z=3
+        (LDPCParams(BG=1, A=44, G=132, Q_m=1), 1.0, -6.0, 64, True, False),  # Z=3
         (LDPCParams(**P3_FIELDS), 0.5, -6.0, 64, False, True),  # Z=208
     ]
     for params, mid_db, low_db, n, first_slice, this_slice in shapes:
@@ -327,8 +330,9 @@ def tied(llr):
 
 def phase_tie_cases(dev, check):
     """The layered min-sum family's compressed messages where rows tie at
-    their smallest magnitude (``tied`` LLRs): V1 at the flagship shape and at
-    Z=20; offset-min-sum with beta = 0.5, where the smallest magnitudes of
+    their smallest magnitude (``tied`` LLRs): V1 at the flagship shape, at
+    BG2 Z=20 and at BG1 Z=13; offset-min-sum with beta = 0.5, where the
+    smallest magnitudes of
     the grid become 0 and messages +-0.0 ('cw' in and out, natural order);
     bfloat16 messages; the packed kernel with CONFIG1_PACK codewords per
     block.  Layered sum-product (V2, its rows at their own degree with their
@@ -348,10 +352,11 @@ def phase_tie_cases(dev, check):
     oms = dict(algorithm="offset-min-sum", beta=0.5, layer_order="natural")
     out = {}
     for params, db, n in ((LDPCParams(**FLAGSHIP), -0.75, 48),
-                          (LDPCParams(**CONFIG1_FIELDS), 1.0, 64)):
+                          (LDPCParams(**CONFIG1_FIELDS), 1.0, 64),
+                          (params_for_z(1, 13), 1.0, 64)):
         d = tied(noisy_d_tilde(params, "QPSK", db, n, 15, dev)[0][:, 0])
         cw = codeword_llrs(params, d)
-        out[params.Z_c] = float((d.abs() == 0.5).float().mean())
+        out[f"bg{params.BG}_z{params.Z_c}"] = float((d.abs() == 0.5).float().mean())
         check("V1", params, d, iterations=ITERATIONS, algorithm="min-sum", **ds)
         check("V1'", params, cw, iterations=ITERATIONS, **oms)
         check("V6-layered", params, d, iterations=ITERATIONS, algorithm="min-sum",
@@ -1280,6 +1285,7 @@ def phase_times(generator, dev, card):
     Returns {variant: measurements}."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
     from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+    from ldpc_3gpp_tpu_torch.tools.small_z import noisy_llrs
 
     ds = dict(channel_format="d", output_format="sys")
     out = {}
@@ -1294,6 +1300,11 @@ def phase_times(generator, dev, card):
     ms4 = time_ms(lambda: decoder_cuda.decode(p1, d4, **v1), reps=5)
     out["V1"]["us_per_codeword_at_4x_batch"] = ms4 * 1e3 / (4 * MAIN_BATCH)
     del d4
+    # V1 at the flagship cell's launch: a step of FLAGSHIP_CELL_BATCH
+    # codewords drawn on the card, held to the plain version once
+    df = noisy_llrs(p1, FLAGSHIP_CELL_BATCH, MAIN_ESN0_DB, 28, dev)
+    out["V1-flagship"] = measure_variant(p1, df, 3, **v1)
+    del df
     cw1 = codeword_llrs(p1, d1[:, 0])
     out["V1'"] = measure_variant(p1, cw1, 10, iterations=ITERATIONS,
                                  algorithm="min-sum", layer_order="natural")
@@ -2580,6 +2591,7 @@ def phase_experiments(dev):
 
 VARIANTS = [
     ("V1", LAYERED_SOURCE, TPU_KERNEL),
+    ("V1-flagship", LAYERED_SOURCE, TPU_KERNEL),
     ("V1'", LAYERED_SOURCE, TPU_KERNEL + " (:213-214, 243-261, 358-359)"),
     ("V4-layered", LAYERED_SOURCE, TPU_KERNEL + " (:494-500, 549-573)"),
     ("V5", LAYERED_SOURCE, TPU_KERNEL + " (:428-440)"),
@@ -2618,23 +2630,26 @@ def ptxas_entries(log):
 
 def check_registers():
     """``ptxas -v`` of the kernels held to a register budget, each without
-    stack or spills: the layered and packed kernels' min-sum-family
-    instantiations (float and bfloat16 messages) at most 80 registers (two
-    384-thread blocks per SM); the one-codeword layered sum-product kernel
-    (V2) at most 72 (four 224-thread blocks per SM at P3's shape); the
-    packed flooding kernel's six instantiations (three rules and message
-    types, messages on chip or in a scratch), the flooding cluster kernel's
-    three and the one-codeword flooding kernel's three at most 64 (1,024
-    threads per SM).  Returns their records by group."""
+    stack or spills: the one-codeword and packed layered kernels' min-sum
+    family instantiations (float and bfloat16 messages; the one-codeword
+    kernel's for each rule) at most 80 registers (two 384-thread blocks per
+    SM); the one-codeword layered sum-product kernel (V2) at most 72 (four
+    224-thread blocks per SM at P3's shape); the packed flooding kernel's six
+    instantiations (three rules and message types, messages on chip or in a
+    scratch), the flooding cluster kernel's three and the one-codeword
+    flooding kernel's three at most 64 (1,024 threads per SM).  Returns their
+    records by group."""
     from ldpc_3gpp_tpu_torch import kernels_build
 
     layered = ptxas_entries(kernels_build.build_log("ldpc_layered"))
     flooding = ptxas_entries(kernels_build.build_log("ldpc_flooding"))
     groups = {  # name: (entries, most registers, count)
         "layered_min_sum_family": ({k: v for k, v in layered.items()
-                                    if "ldpc_layered" in k and "ILb0E" in k}, 80, 4),
+                                    if k.startswith("_Z27ldpc_layered_min_sum_kernel")
+                                    or ("ldpc_layered_packed_kernel" in k and "ILb0E" in k)},
+                                   80, 6),
         "V2": ({k: v for k, v in layered.items()
-                if k.startswith("_Z19ldpc_layered_kernelILb1EfE")}, 72, 1),
+                if k.startswith("_Z22ldpc_layered_sp_kernel")}, 72, 1),
         "packed_flooding": ({k: v for k, v in flooding.items()
                              if "ldpc_flooding_packed_kernel" in k}, 64, 6),
         "cluster_flooding": ({k: v for k, v in flooding.items()
@@ -2784,10 +2799,12 @@ def main() -> int:
     emit({"phase": "benchmark", "card": card, **bench, "seconds": watch.lap()})
     launches["V3-NMS-config1"] = sum(
         bench["config1_bg2_a100_b524288"]["launches_by_shape"].values())
+    launches["V1-flagship"] = sum(bench["flagship_headline"]["launches_by_shape"].values())
 
     times = phase_times(generator, dev, card)
     emit({"phase": "times", "seconds": watch.lap()})
-    per_sm = {v: times[v]["blocks_per_sm"] for v in ("V1", "V1'", "V4-layered", "V5", "V6-layered")}
+    per_sm = {v: times[v]["blocks_per_sm"]
+              for v in ("V1", "V1-flagship", "V1'", "V4-layered", "V5", "V6-layered")}
     if set(per_sm.values()) != {2}:
         raise AssertionError(f"layered min-sum kernels not at 2 blocks per SM: {per_sm}")
     if times["V2"]["blocks_per_sm"] != 4:
@@ -2806,12 +2823,12 @@ def main() -> int:
         m = times[variant]
         if launches[variant] < 1:
             raise AssertionError(f"{variant} was launched on no path")
-        diff = max(tally.worst[variant], m["max_abs_diff"])
+        diff = max(tally.worst.get(variant, 0), m["max_abs_diff"])
         kernels.append({
             "name": f"{os.path.splitext(os.path.basename(source))[0]}/"
                     f"{'V7' if variant.startswith('V7') else variant}",
             "route": "cuda", "source": source, "replaces": replaces,
-            "variant": variant, "cases": tally.cases[variant] + 1,
+            "variant": variant, "cases": tally.cases.get(variant, 0) + 1,
             "launches": launches[variant], "max_abs_err": diff,
             "max_abs_diff": diff, "tolerance": 0,
             "ms": m["ms"], "plain_ms": m["plain_ms"],

@@ -10,7 +10,9 @@ events:
 - V1: layered min-sum, BG1 A=8424 Z=384, 1,024 codewords at 1.0 dB, 12
   iterations; at the same shape V1' (offset-min-sum, 'cw' in and out,
   natural order), V4-layered (run to the budget) and V6-layered (bfloat16
-  messages);
+  messages); V1-flagship-8192: V1 at 8,192 codewords, a quarter of the
+  ``flagship_headline`` benchmark cell's step of 32,768 (the launch's
+  shape: one block per codeword, many waves);
 - V7-layered and V7-flooding: the packed kernels at config #1's launch,
   BG2 A=100 Z=20, 2,048 codewords at 2.0 dB, min-sum, 4 codewords per
   block, 12 and 50 iterations; V7-flooding-P1: the one-codeword flooding
@@ -76,6 +78,7 @@ def main() -> int:
     v1 = dict(iterations=12, algorithm="min-sum", **ds)
     for name, fields, esn0_db, n, reps, kw in (
         ("V1", cs.FLAGSHIP, 1.0, 1024, 50, v1),
+        ("V1-flagship-8192", cs.FLAGSHIP, 1.0, 8192, 10, v1),
         ("V1'", cs.FLAGSHIP, 1.0, 1024, 20, dict(
             iterations=12, algorithm="offset-min-sum", layer_order="natural")),
         ("V4-layered", cs.FLAGSHIP, 1.0, 1024, 10, dict(v1, early_termination=False)),
