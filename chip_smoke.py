@@ -205,6 +205,7 @@ def codeword_llrs(params, d):
 
 def case_variant(variant, params, n, kw, sms):
     """The row of the ``kernels`` line a compared case counts for.  A
+    layered launch in the warp form counts for V7-layered.  A
     one-codeword flooding launch in a cluster layout (``launch_shape``'s
     layout 2 or 3) runs ``ldpc_flooding_cluster_kernel``, a __global__ of its
     own with a row per instantiation: sum-product, the min-sum family with
@@ -212,7 +213,14 @@ def case_variant(variant, params, n, kw, sms):
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
 
     if kw.get("schedule") != "flooding":
-        return variant
+        # a layered launch that the automatic rule gives the warp form (the
+        # min-sum family at small Z) runs the warp kernel, V7-layered's
+        P = decoder_cuda.resolve_codewords_per_block(
+            params, n, "layered", kw.get("codewords_per_block", 0),
+            kw.get("algorithm", "min-sum"), kw.get("message_dtype", "float32"), sms)
+        warp = decoder_cuda.warp_form(params, P, kw.get("algorithm", "min-sum"),
+                                      kw.get("message_dtype", "float32"))
+        return "V7-layered" if warp else variant
     shape = decoder_cuda.launch_shape(
         params, n, "flooding", kw.get("codewords_per_block", 0), sms)
     if shape["layout"] < 2:
@@ -498,13 +506,19 @@ def phase_packed_vs_plain(dev, tally):
     codewords, so every P leaves a ragged last block: 16 at high SNR (whole
     blocks that pass at once), 16 of noise (whole blocks that never pass),
     21 around the waterfall (0.5 and 1.5 dB at rate 1/3: the codewords of a block stop at different
-    sweeps).  Returns {Z: the P values compared} and, per Z and schedule, [most
-    sweeps of the high-SNR group, fewest of the noise group, distinct counts in
-    the waterfall group]."""
+    sweeps).  At Z <= 32 the layered launches also run at every P the
+    automatic rule picks and at one that leaves a warp ragged (the warp
+    kernel), once more on the codewords shuffled so that a warp's codewords
+    come from all three groups, and on tied LLRs against the plain version
+    (``warp_form_ties``).  Returns {Z/schedule: the P values compared}, per Z
+    and schedule [most sweeps of the high-SNR group, fewest of the noise
+    group, distinct counts in the waterfall group], and the cases held to the
+    plain version."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
     from ldpc_3gpp_tpu_torch.tools.small_z import noisy_llrs, params_for_z
 
     compared, mixes, plain_cases = {}, {}, 0
+    shuffle = torch.randperm(53, generator=torch.Generator().manual_seed(53)).to(dev)
     for Z in PACKED_ZS:
         params = params_for_z(1 if Z in (2, 5, 13, 36, 96) else 2, Z)
         d = torch.cat([noisy_llrs(params, 16, 12.0, 40 + Z, dev),
@@ -516,7 +530,11 @@ def phase_packed_vs_plain(dev, tally):
         for schedule in ("layered", "flooding"):
             fit = [P for P in (2, 4, 8, 16) if decoder_cuda._fits(schedule, params, P)]
             ps = sorted({fit[0], fit[-1]}) if fit else []
-            compared[Z] = ps
+            if schedule == "layered" and Z <= decoder_cuda.WARP_FORM_MAX_Z:
+                # the warp form: every P the rule picks, and a last warp ragged
+                G = 32 // Z
+                ps = sorted(set(ps) | rule_ps(params) | {G + G // 2 if G > 1 else 3})
+            compared[f"{Z}/{schedule}"] = ps
             if not fit:  # nothing to pack: asking for it raises
                 try:
                     decoder_cuda.decode(params, d, schedule=schedule,
@@ -544,16 +562,62 @@ def phase_packed_vs_plain(dev, tally):
                         torch.cuda.synchronize()
                         tally.add(f"V7-{schedule}",
                                   require_equal(got, one, dict(kw, Z=Z, P=P)))
+                        if schedule == "layered" and decoder_cuda.warp_form(
+                                params, P, rule, kw.get("message_dtype", "float32")):
+                            # a warp's codewords from all three groups
+                            got = decoder_cuda.decode(params, llr[shuffle], codewords_per_block=P,
+                                                      **kw)
+                            torch.cuda.synchronize()
+                            tally.add("V7-layered", require_equal(
+                                got, type(one)(*(f[shuffle] for f in one)),
+                                dict(kw, Z=Z, P=P, shuffled=True)))
                     if kw.get("early_termination", True) and rule == "min-sum":
                         its = one.iterations.tolist()
                         mixes[f"{Z}/{schedule}"] = [
                             max(its[:16]), min(its[16:32]), len(set(its[32:]))]
+        if Z <= decoder_cuda.WARP_FORM_MAX_Z:
+            plain_cases += warp_form_ties(params, d, tally)
     # the point of the three groups: early blocks, blocks that never pass, and
     # blocks whose codewords stop at different sweeps
     mixed = sum(1 for hi, lo, kinds in mixes.values() if hi < lo and kinds > 1)
     if mixed < len(mixes) // 2:
         raise AssertionError(f"the LLRs do not mix sweeps within blocks: {mixes}")
     return compared, mixes, plain_cases
+
+
+def rule_ps(params):
+    """The codewords per block (above 1) that the automatic rule picks for
+    this code's layered min-sum launches, at a sweep's call and at bulk."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    return {P for n in (256, 2048, 16384, 65536)
+            for P in (decoder_cuda.auto_codewords_per_block(params, n, "layered"),) if P > 1}
+
+
+def warp_form_ties(params, d, tally):
+    """The warp kernel on ``tied`` LLRs (rows tie at their smallest
+    magnitude) at every P the rule picks (or 4) against the plain version,
+    tolerance 0: min-sum with early termination ('d' in, 'sys' out) and
+    offset-min-sum with beta 0.5 and bfloat16 messages run to budget ('cw'
+    in and out, natural order; zero magnitudes).  Returns the cases."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+
+    t = tied(d)
+    cases = 0
+    for llr, kw in ((t, dict(channel_format="d", output_format="sys", algorithm="min-sum",
+                             iterations=ITERATIONS)),
+                    (codeword_llrs(params, t), dict(algorithm="offset-min-sum", beta=0.5,
+                                                    message_dtype="bfloat16", iterations=8,
+                                                    early_termination=False,
+                                                    layer_order="natural"))):
+        want = decoder_cuda.decode_plain(params, llr, **kw)
+        for P in sorted(rule_ps(params)) or [4]:
+            got = decoder_cuda.decode(params, llr, codewords_per_block=P, **kw)
+            torch.cuda.synchronize()
+            tally.add("V7-layered", require_equal(got, want, dict(kw, Z=params.Z_c, P=P,
+                                                                  tied=True)))
+            cases += 1
+    return cases
 
 
 # The packed flooding kernel's cases beyond ``packed_vs_plain``: (base graph,
@@ -1382,7 +1446,20 @@ def phase_times(generator, dev, card):
         assert out[name]["codewords_per_block"] == CONFIG1_PACK
         out[name]["ms_one_codeword_per_block"] = time_ms(
             lambda: decoder_cuda.decode(p7, d7, codewords_per_block=1, **kw), reps=20)
+    v7 = dict(schedule="layered", iterations=ITERATIONS, algorithm="min-sum", **ds)
+    out["V1-z20"] = measure_variant(p7, d7, 20, codewords_per_block=1, **v7)
     del d7
+    # the warp form at the rule's codewords per block: config #1's code at a
+    # bulk launch and BG2 Z=8 (the kernel alone: these launches are held to
+    # the plain version at smaller batches in packed_vs_plain)
+    for name, fields, n in (("V7-layered-65536", CONFIG1_FIELDS, 65536),
+                            ("V7-layered-z8", dict(BG=2, A=32, G=64, Q_m=2), 16384)):
+        pz = LDPCParams(**fields)
+        dz, _ = noisy_d_tilde(pz, "QPSK", 2.0, n, 24, dev)
+        out[name] = measure_variant(pz, dz, 5, plain=False, **v7)
+        if not decoder_cuda.warp_form(pz, out[name]["codewords_per_block"]):
+            raise AssertionError(f"{name} did not take the warp form: {out[name]}")
+        del dz
 
     from ldpc_3gpp_tpu_torch.tools import small_z
 
@@ -2396,7 +2473,8 @@ def benchmark_launches(spec: dict, cut: dict, sms: int) -> dict:
     traffic = {**spec["traffic"], **cut}
     cfg = cells.chain_config(spec["configuration"])
     shape = decoder_cuda.launch_shape(cfg.params, traffic["batch_per_step"] * cfg.params.C,
-                                      cfg.schedule, cfg.codewords_per_block, sms)
+                                      cfg.schedule, cfg.codewords_per_block, sms, cfg.algorithm,
+                                      cfg.message_dtype)
     steps = traffic["steps_per_call"] * (
         traffic["warmup_calls"]
         + traffic["trials"] * traffic["fetches_per_trial"] * traffic["calls_per_fetch"]
@@ -2633,8 +2711,10 @@ def check_registers():
     stack or spills: the one-codeword and packed layered kernels' min-sum
     family instantiations (float and bfloat16 messages; the one-codeword
     kernel's for each rule) at most 80 registers (two 384-thread blocks per
-    SM); the one-codeword layered sum-product kernel (V2) at most 72 (four
-    224-thread blocks per SM at P3's shape); the packed flooding kernel's six
+    SM); the warp kernel's four (each rule and message type) at most 128 (one
+    block of WARP_FORM_MAX_THREADS per SM); the one-codeword layered
+    sum-product kernel (V2) at most 72 (four 224-thread blocks per SM at P3's
+    shape); the packed flooding kernel's six
     instantiations (three rules and message types, messages on chip or in a
     scratch), the flooding cluster kernel's three and the one-codeword
     flooding kernel's three at most 64 (1,024 threads per SM).  Returns their
@@ -2648,6 +2728,8 @@ def check_registers():
                                     if k.startswith("_Z27ldpc_layered_min_sum_kernel")
                                     or ("ldpc_layered_packed_kernel" in k and "ILb0E" in k)},
                                    80, 6),
+        "warp_form": ({k: v for k, v in layered.items()
+                       if k.startswith("_Z24ldpc_layered_warp_kernel")}, 128, 4),
         "V2": ({k: v for k, v in layered.items()
                 if k.startswith("_Z22ldpc_layered_sp_kernel")}, 72, 1),
         "packed_flooding": ({k: v for k, v in flooding.items()

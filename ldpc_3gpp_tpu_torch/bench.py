@@ -373,7 +373,8 @@ def run_sweep(trials=3, reps=2, device="cuda", steps=None, names=None) -> list:
             "launches": d["launches"],
             "launches_by_p": d["launches_by_p"],
             "codewords_per_block": decoder_cuda.auto_codewords_per_block(
-                cfg.params, d["batch"] * cfg.params.C, cfg.schedule),
+                cfg.params, d["batch"] * cfg.params.C, cfg.schedule, cfg.algorithm,
+                cfg.message_dtype),
         }
         print(json.dumps({**rec, "seen": seen}), flush=True)
         out.append({**rec, "seen": seen})

@@ -78,22 +78,24 @@
 // The check-node update, phi and the notes on bit-exactness are in
 // ldpc_bp.cuh, shared with the flooding kernel.
 //
-// Several small-Z codewords per block (ldpc_layered_packed_kernel below)
-// replaces the TPU kernel's packed tiles (decoder_pallas.py::_auto_pack,
-// the segment-local parity vote and the pack/unpack transposes of its
-// wrapper).  What bounds a small-Z block on this card: one block per codeword
-// is one warp with Z live lanes (20 of 32 at Z=20), a block-wide barrier per
-// row for that one warp, a private copy of the edge table per block, and at
-// most 32 resident blocks per SM, half of its 64 warps.  The packed kernel
-// gives a block P codewords: thread t owns lane t % Z of codeword t / Z, one
-// edge table serves all P, and the block's share of the scratch is laid out
-// (row, word, P*Z) (sum-product: (E, P*Z)) so that a row's words are one
-// contiguous run across the P codewords.  Votes and stops are per codeword
-// (a flag word each in shared memory, set between two barriers); a codeword
-// that passed stops at the sweep the one-codeword kernel stops at and writes
-// nothing afterwards, its lanes still reach every barrier, and the block
-// leaves when all P are done.
-// It is a kernel of its own, so the one-codeword kernel keeps its registers.
+// Several small-Z codewords per block replace the TPU kernel's packed tiles
+// (decoder_pallas.py::_auto_pack, the segment-local parity vote and the
+// pack/unpack transposes of its wrapper), in two kernels of their own, so
+// that the one-codeword kernels keep their registers.  What bounds a small-Z
+// block on this card: one block per codeword is one warp with Z live lanes
+// (20 of 32 at Z=20), a private copy of the edge table per block, and at most
+// 32 resident blocks per SM.  The min-sum family at Z <= 32 takes the warp
+// form (ldpc_layered_warp_kernel, below the packed kernel: each warp owns 32
+// / Z codewords, or one, and no warp waits for another).  Sum-product, Z > 32
+// and a P whose warps would not fit a block take ldpc_layered_packed_kernel:
+// thread t owns lane t % Z of codeword t / Z, one edge table serves all P,
+// and the block's share of the scratch is laid out (row, word, P*Z)
+// (sum-product: (E, P*Z)) so that a row's words are one contiguous run across
+// the P codewords.  Its votes and stops are per codeword (a flag word each in
+// shared memory, set between two barriers); a codeword that passed stops at
+// the sweep the one-codeword kernel stops at and writes nothing afterwards,
+// its lanes still reach every barrier, and the block leaves when all P are
+// done.
 
 #include "ldpc_bp.cuh"
 
@@ -508,19 +510,268 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
   }
 }
 
+// ---- P codewords per block at Z <= 32: the warp form ---------------------
+//
+// ldpc_layered_warp_kernel replaces ldpc_layered_packed_kernel for the min-sum
+// family at Z <= 32 (the packed kernel keeps sum-product, Z > 32 and a P
+// whose warps or state do not fit a block).  Taken apart on an NVIDIA H100
+// 80GB HBM3 at 700 W at config #1's code (BG2 Z=20; tools/layered_probe.py's
+// `packed_block` family, PERF.md section 6), the packed kernel was bound by
+// the instructions of its row (PR 19's row alone took a fifth off) and by its
+// words' traffic (a quarter); its block-wide barriers and its stragglers cost
+// little, and its words on chip lost because they cut the blocks per SM.  At
+// 2,048 codewords an SM holds about 16 codewords in all, and a lone warp's row
+// step takes about 550 cycles (BG2 Z=8, four codewords a warp, one warp a
+// scheduler), so a launch is only as fast as the codewords its SMs hold at
+// once, and a second round of a few codewords doubles its time.
+// Here a warp owns its codewords outright: G = min(P, 32 / Z) of them, lanes
+// k*Z .. k*Z + Z - 1 for codeword k; a block is ceil(P / G) such warps (up
+// to WARP_FORM_MAX_THREADS, one block per SM at Z=20: 16 codewords) that
+// share one edge table and never wait for each other.  The warps are
+// persistent: the grid is what the SMs hold, and each warp takes its next
+// codewords from a counter in global memory (atomicAdd; the order changes no
+// result) until none are left, so no SM idles behind a straggler.  A warp's
+// totals are laid out (column, G*Z) in shared memory, so that the G codewords
+// of a row read one run of lanes, and its words (row, word, G*Z) beside them:
+// no word goes through the L2, and each lane zeroes its own words when it
+// takes a codeword, so that sweep 0 reads zero messages.  Rows are separated
+// by __syncwarp(), a codeword votes by __ballot_sync over its lanes, and a
+// warp takes new codewords when all of its own are done.  The row is the
+// one-codeword min-sum kernel's (min_sum_row_slots: byte offsets and wrap
+// lanes in the edge records, unrolled to its degree, the rule a template
+// parameter), found by one (first edge, degree) record per row that is read,
+// with the row's words, a row ahead.
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+// the most shared memory one block of an H100 may opt in to
+constexpr size_t WARP_FORM_SHARED_LIMIT = 232448;
+#define WARP_FORM_MAX_THREADS 512
+
+// Codewords that one warp holds, warps of a block of P codewords.
+__host__ __device__ inline int warp_codewords(int Z, int P) { return P < 32 / Z ? P : 32 / Z; }
+__host__ __device__ inline int warp_count(int Z, int P) {
+  const int G = warp_codewords(Z, P);
+  return (P + G - 1) / G;
+}
+// Bytes of a warp-form block's edge table and row records, and of one warp's
+// state: its totals and its words (`words` 32-bit words per row and lane).
+__host__ __device__ inline size_t warp_table_bytes(int nr, int E) {
+  return align16((size_t)E * 16 + (size_t)nr * 8);
+}
+__host__ __device__ inline size_t warp_state_bytes(int Z, int nc, int nr, int words, int P) {
+  const size_t L = (size_t)warp_codewords(Z, P) * Z;
+  return align16((size_t)nc * L * 4) + (size_t)nr * words * L * 4;
+}
+static size_t warp_shared_bytes(int Z, int nc, int nr, int E, int P, int words) {
+  return warp_table_bytes(nr, E) + (size_t)warp_count(Z, P) * warp_state_bytes(Z, nc, nr, words, P);
+}
+// The warp form: the min-sum family, P > 1 codewords at Z <= 32, where the
+// block's warps and their state fit a block.
+static bool warp_form(int rule, int bf16_messages, int Z, int nc, int nr, int E, int P) {
+  if (rule == RULE_SUM_PRODUCT || P < 2 || Z > 32) return false;
+  const int N = bf16_messages ? RowWords<__nv_bfloat16>::N : RowWords<float>::N;
+  return warp_count(Z, P) * 32 <= WARP_FORM_MAX_THREADS &&
+         warp_shared_bytes(Z, nc, nr, E, P, N) <= WARP_FORM_SHARED_LIMIT;
+}
+
+// Lane z of every column of one codeword's totals from its channel LLRs into
+// t (the codeword's lane z of column 0), the columns L lanes apart
+// (load_totals with a stride).
+__device__ __forceinline__ void load_totals_lanes(float* t, const float* src, int z, int L,
+                                                  const DecodeArgs& a) {
+  const int Z = a.Z, nc = a.nc;
+  if (a.d_input) {
+    t[0] = 0.0f;
+    t[L] = 0.0f;
+    for (int c = 2; c < nc; ++c) {
+      const int j = (c - 2) * Z + z;
+      t[c * L] = (j >= a.fill_lo && j < a.fill_hi) ? FILLER_LLR : src[j];
+    }
+  } else {
+    for (int c = 0; c < nc; ++c) t[c * L] = src[c * Z + z];
+  }
+}
+
+// syndrome_bits through the warp form's byte offsets and row records.
+__device__ __forceinline__ unsigned warp_syndrome_bits(const unsigned char* totals,
+                                                       const int4* edges, const int2* rows,
+                                                       int nr, int z, int z4, int Z4) {
+  unsigned bad = 0;
+  for (int r = 0; r < nr; ++r) {
+    const int2 row = rows[r];
+    unsigned par = 0;
+    for (int e = row.x; e < row.x + row.y; ++e) {
+      const int4 ed = edges[e];
+      par ^= *reinterpret_cast<const unsigned*>(totals + ed.z + z4 - (z >= ed.w ? Z4 : 0));
+    }
+    bad |= par;
+  }
+  return bad;
+}
+
+// min_sum_row for the warp form: the same bodies, reached by a chain of
+// tests on the degree, the most frequent of both base graphs first, in
+// place of a jump table.  On an NVIDIA H100 80GB HBM3 at 700 W, at BG2 Z=20
+// and Z=8, the chain took 5-14 % off the warp kernel (tools/layered_probe.py
+// `packed`, PERF.md section 6):
+// at a few warps per scheduler a row waits on the table's load and the
+// indirect branch.
+template <typename MSG, bool OFFSET>
+__device__ __forceinline__ unsigned warp_row(unsigned char* totals, const int4* ms, int deg,
+                                             const RowMsgs& old, unsigned* w, int L, int z,
+                                             int z4, int Z4, float alpha_t, float beta) {
+#define WARP_ROW_EXACT(D)                                                                    \
+  if (deg == D)                                                                              \
+    return min_sum_row_slots<MSG, D, OFFSET>(totals, ms, D, old, w, L, z, z4, Z4, alpha_t, \
+                                             beta);
+  WARP_ROW_EXACT(4) WARP_ROW_EXACT(5) WARP_ROW_EXACT(6) WARP_ROW_EXACT(3) WARP_ROW_EXACT(7)
+  WARP_ROW_EXACT(8) WARP_ROW_EXACT(10) WARP_ROW_EXACT(9) WARP_ROW_EXACT(19)
+#undef WARP_ROW_EXACT
+  return min_sum_row_slots<MSG, MAX_DEG, OFFSET>(totals, ms, deg, old, w, L, z, z4, Z4, alpha_t,
+                                                 beta);
+}
+
+// P codewords per block of ceil(P / G) persistent warps (see above); warp w
+// takes G codewords at a time (its share of the P, the last warp fewer where
+// P is not a multiple of G) from `next`, which the launch sets to 0.  The
+// edge table in shared memory keeps the plan's (.x, .y) and gives .z the
+// byte offset in a warp's totals of the edge's column at lane `shift` of its
+// codeword 0 (4 * (col*G*Z + shift)) and .w the first lane that wraps (Z -
+// shift), so that lane z of codeword k is at .z + 4(kZ + z) - (z >= .w ? 4Z :
+// 0).
+template <typename MSG, bool OFFSET>
+__global__ void __launch_bounds__(WARP_FORM_MAX_THREADS, 1)
+ldpc_layered_warp_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
+                         int* __restrict__ ok_out, int* __restrict__ it_out,
+                         int* __restrict__ next, const int4* __restrict__ edges_g,
+                         const int* __restrict__ row_start_g, DecodeArgs a, int P, int ncw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int N = RowWords<MSG>::N;
+  const int Z = a.Z, nc = a.nc, nr = a.nr, E = a.E;
+  const int G = warp_codewords(Z, P);
+  const int L = G * Z;  // lanes of a warp's state
+  int4* edges = reinterpret_cast<int4*>(smem);
+  int2* rows = reinterpret_cast<int2*>(edges + E);  // (first edge, degree)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = lane / Z;                      // codeword of this lane within its warp
+  const int z = lane - k * Z;                  // its check
+  const int taken = min(G, P - warp * G);      // codewords this warp takes at a time
+  unsigned char* totals = smem + warp_table_bytes(nr, E) +
+                          (size_t)warp * warp_state_bytes(Z, nc, nr, N, P);
+  // this lane's words (lanes past the warp's codewords read lane 0's, and
+  // store none)
+  unsigned* words = reinterpret_cast<unsigned*>(totals + align16((size_t)nc * L * 4)) +
+                    (k < G ? k * Z + z : 0);
+  const int row_words = N * L;
+  const int z4 = 4 * (k * Z + z), Z4 = 4 * Z;
+  // this codeword's lanes in the warp's votes
+  const unsigned mine = k < G ? (Z == 32 ? FULL_WARP : (1u << Z) - 1u) << (k * Z) : 0u;
+
+  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    int4 ed = edges_g[i];
+    ed.z = 4 * (ed.x * G + ed.y);
+    ed.w = Z - ed.y;
+    edges[i] = ed;
+  }
+  for (int i = threadIdx.x; i < nr; i += blockDim.x)
+    rows[i] = make_int2(row_start_g[i], row_start_g[i + 1] - row_start_g[i]);
+  __syncthreads();  // the block's only barrier: from here on each warp goes alone
+
+  for (;;) {
+    int first_cw = 0;
+    if (lane == 0) first_cw = atomicAdd(next, taken);
+    first_cw = __shfl_sync(FULL_WARP, first_cw, 0);
+    if (first_cw >= ncw) break;  // uniform over the warp
+    const size_t cw = (size_t)first_cw + k;
+    const bool active = k < taken && cw < (size_t)ncw;
+    if (active) {
+      load_totals_lanes(reinterpret_cast<float*>(totals) + k * Z + z,
+                        llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, L, a);
+      for (int i = 0; i < nr * N; ++i) words[i * L] = 0u;
+    }
+    __syncwarp();
+
+    int used = a.iterations;
+    bool passed = false;   // this lane's codeword passed its parity vote
+    bool done = !active;   // nothing (more) to do for this lane
+    // The next row's record and this lane's words of it are read a row ahead
+    // (no row writes another's words), so that a row starts with its totals.
+    int2 row = rows[0];
+    RowMsgs old = load_row_msgs<MSG>(words, L);
+    for (int it = 0; it < a.iterations; ++it) {
+      float alpha_t = it < a.n0 ? a.alpha0 : a.alpha;
+      asm("" : "+f"(alpha_t));  // in a register across rows
+      unsigned bad = 0;
+      for (int r = 0, w = 0; r < nr; ++r, w += row_words) {
+        const int2 cur = row;
+        const RowMsgs cur_old = old;
+        const int wn = r + 1 < nr ? w + row_words : 0;  // past the last row: row 0
+        row = rows[r + 1 < nr ? r + 1 : 0];
+        old = load_row_msgs<MSG>(words + wn, L);
+        // parity of the totals as read in this sweep
+        if (!done)
+          bad |= warp_row<MSG, OFFSET>(totals, edges + cur.x, cur.y, cur_old, words + w, L, z,
+                                       z4, Z4, alpha_t, a.beta);
+        __syncwarp();
+      }
+      if (a.early_termination) {
+        const unsigned odd = __ballot_sync(FULL_WARP, !done && (bad & SIGN_BIT));
+        if (!done && !(odd & mine)) {
+          passed = done = true;
+          used = it;
+        }
+        if (__all_sync(FULL_WARP, done)) break;
+      }
+    }
+
+    // A codeword that never passed (or a run to budget) gets one clean
+    // syndrome pass over the settled totals.
+    unsigned bad = 0;
+    if (active && !passed) bad = warp_syndrome_bits(totals, edges, rows, nr, z, z4, Z4);
+    const unsigned odd = __ballot_sync(FULL_WARP, bad & SIGN_BIT);
+    if (active) {
+      const float* t = reinterpret_cast<const float*>(totals) + k * Z + z;
+      int8_t* dst = bits + cw * (size_t)(a.out_cols * Z);
+      for (int c = 0; c < a.out_cols; ++c) dst[c * Z + z] = t[c * L] < 0.0f;
+      if (z == 0) {
+        ok_out[cw] = passed || !(odd & mine);
+        it_out[cw] = used;
+      }
+    }
+    __syncwarp();  // every lane's reads of this state before the next codeword's loads
+  }
+}
+
 extern "C" int ldpc_layered_max_degree() { return MAX_DEG; }
 extern "C" int ldpc_layered_max_z() { return MAX_THREADS; }
 extern "C" int ldpc_layered_max_shared_bytes() { return max_shared_bytes_optin(); }
 
-// Dynamic shared memory of one block of P codewords: P sets of totals, edge
-// table, row offsets and, for P > 1, a flag word per codeword.
-extern "C" int ldpc_layered_shared_bytes(int Z, int nc, int nr, int E, int P) {
+// Threads of a block of P codewords: the warp form's whole warps, else P*Z
+// lanes rounded up to whole warps.
+static int block_threads(int rule, int bf16_messages, int Z, int nc, int nr, int E, int P) {
+  return warp_form(rule, bf16_messages, Z, nc, nr, E, P) ? warp_count(Z, P) * 32
+                                                         : (P * Z + 31) / 32 * 32;
+}
+
+// Dynamic shared memory of one block of P codewords.  The warp form: the edge
+// table and row records, then each warp's totals and words.  Else P sets of
+// totals, edge table, row offsets and, for P > 1, a flag word per codeword.
+extern "C" int ldpc_layered_shared_bytes(int rule, int bf16_messages, int Z, int nc, int nr,
+                                         int E, int P) {
+  if (warp_form(rule, bf16_messages, Z, nc, nr, E, P))
+    return (int)warp_shared_bytes(Z, nc, nr, E, P, bf16_messages ? RowWords<__nv_bfloat16>::N
+                                                                   : RowWords<float>::N);
   return (int)(align16((size_t)P * nc * Z * 4) + (size_t)E * 16 +
                (size_t)(nr + 1) * 4 + (P > 1 ? (size_t)P * 4 : 0));
 }
 
 template <bool SUM_PRODUCT, typename MSG>
-static const void* kernel_of(int P, bool offset_rule) {
+static const void* kernel_of(int Z, int nc, int nr, int E, int P, bool offset_rule) {
+  if (warp_form(SUM_PRODUCT ? RULE_SUM_PRODUCT : RULE_MIN_SUM, sizeof(MSG) == 2, Z, nc, nr, E,
+                P))
+    return offset_rule ? (const void*)ldpc_layered_warp_kernel<MSG, true>
+                       : (const void*)ldpc_layered_warp_kernel<MSG, false>;
   if (P > 1) return (const void*)ldpc_layered_packed_kernel<SUM_PRODUCT, MSG>;
   if constexpr (SUM_PRODUCT)
     return (const void*)ldpc_layered_sp_kernel;
@@ -530,20 +781,46 @@ static const void* kernel_of(int P, bool offset_rule) {
     return (const void*)ldpc_layered_min_sum_kernel<MSG, false>;
 }
 
+// The warp form's grid: as many blocks as the SMs hold at once (the
+// occupancy API), at most one per P codewords.
+static int warp_form_blocks(const void* kernel, int threads, int smem_bytes, int ncw, int P) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
+  if (err != cudaSuccess) return -(int)err;
+  return min((ncw + P - 1) / P, max(1, sms * per_sm));
+}
+
 template <bool SUM_PRODUCT, typename MSG>
 static int launch(const void* llr, void* bits, void* ok, void* iters, void* scratch,
                   const void* edges, const void* row_start, int ncw, int P,
                   const DecodeArgs& a, cudaStream_t stream) {
-  const int threads = (P * a.Z + 31) / 32 * 32;
-  const int smem_bytes = ldpc_layered_shared_bytes(a.Z, a.nc, a.nr, a.E, P);
-  cudaError_t err = cudaFuncSetAttribute(kernel_of<SUM_PRODUCT, MSG>(P, a.offset_rule),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int rule = SUM_PRODUCT ? RULE_SUM_PRODUCT : a.offset_rule;
+  const int bf16 = sizeof(MSG) == 2;
+  const int threads = block_threads(rule, bf16, a.Z, a.nc, a.nr, a.E, P);
+  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, a.Z, a.nc, a.nr, a.E, P);
+  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(a.Z, a.nc, a.nr, a.E, P, a.offset_rule);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const float* in = (const float*)llr;
   const int4* e = (const int4*)edges;
   const int* rs = (const int*)row_start;
-  if (P > 1) {
+  if (warp_form(rule, bf16, a.Z, a.nc, a.nr, a.E, P)) {
+    const int blocks = warp_form_blocks(kernel, threads, smem_bytes, ncw, P);
+    if (blocks < 0) return -blocks;
+    err = cudaMemsetAsync(scratch, 0, sizeof(int), stream);  // the codeword counter
+    if (err != cudaSuccess) return (int)err;
+    if (a.offset_rule)
+      ldpc_layered_warp_kernel<MSG, true><<<blocks, threads, smem_bytes, stream>>>(
+          in, (int8_t*)bits, (int*)ok, (int*)iters, (int*)scratch, e, rs, a, P, ncw);
+    else
+      ldpc_layered_warp_kernel<MSG, false><<<blocks, threads, smem_bytes, stream>>>(
+          in, (int8_t*)bits, (int*)ok, (int*)iters, (int*)scratch, e, rs, a, P, ncw);
+  } else if (P > 1) {
     ldpc_layered_packed_kernel<SUM_PRODUCT, MSG>
         <<<(ncw + P - 1) / P, threads, smem_bytes, stream>>>(
             in, (int8_t*)bits, (int*)ok, (int*)iters, scratch, e, rs, a, P, ncw);
@@ -561,14 +838,17 @@ static int launch(const void* llr, void* bits, void* ok, void* iters, void* scra
 }
 
 template <bool SUM_PRODUCT, typename MSG>
-static int occupancy(int Z, int P, int smem_bytes, bool offset_rule) {
+static int occupancy(int rule, int Z, int nc, int nr, int E, int P) {
   int n = 0;
-  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(P, offset_rule);
+  const int bf16 = sizeof(MSG) == 2;
+  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P);
+  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(Z, nc, nr, E, P,
+                                                   rule == RULE_OFFSET_MIN_SUM);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kernel, (P * Z + 31) / 32 * 32, smem_bytes);
+        &n, kernel, block_threads(rule, bf16, Z, nc, nr, E, P), smem_bytes);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -580,29 +860,32 @@ extern "C" int ldpc_layered_blocks_per_sm(int rule, int bf16_messages,
                                           int nr, int E) {
   const int P = codewords_per_block;
   if (Z < 1 || P < 1 || P * Z > MAX_THREADS) return -(int)cudaErrorInvalidValue;
-  const int smem_bytes = ldpc_layered_shared_bytes(Z, nc, nr, E, P);
-  const bool offset = rule == RULE_OFFSET_MIN_SUM;
-  if (rule == RULE_SUM_PRODUCT) return occupancy<true, float>(Z, P, smem_bytes, offset);
-  if (bf16_messages) return occupancy<false, __nv_bfloat16>(Z, P, smem_bytes, offset);
-  return occupancy<false, float>(Z, P, smem_bytes, offset);
+  if (rule == RULE_SUM_PRODUCT) return occupancy<true, float>(rule, Z, nc, nr, E, P);
+  if (bf16_messages) return occupancy<false, __nv_bfloat16>(rule, Z, nc, nr, E, P);
+  return occupancy<false, float>(rule, Z, nc, nr, E, P);
 }
 
 // Bytes of one block's share of the scratch: sum-product, P*E*Z float
 // messages, laid out (E, P*Z); the min-sum family, nr*N*P*Z words of 32 bits,
-// laid out (row, word, P*Z) (N = 3 with float32 messages, 2 with bfloat16).
-extern "C" int ldpc_layered_scratch_bytes(int rule, int bf16_messages, int Z,
+// laid out (row, word, P*Z) (N = 3 with float32 messages, 2 with bfloat16);
+// the warp form none: its scratch is one int per launch, the codeword counter.
+extern "C" int ldpc_layered_scratch_bytes(int rule, int bf16_messages, int Z, int nc,
                                           int nr, int E, int P) {
   if (rule == RULE_SUM_PRODUCT) return E * P * Z * 4;
-  return nr * (bf16_messages ? RowWords<__nv_bfloat16>::N : RowWords<float>::N) * P * Z * 4;
+  if (warp_form(rule, bf16_messages, Z, nc, nr, E, P)) return 0;
+  const int N = bf16_messages ? RowWords<__nv_bfloat16>::N : RowWords<float>::N;
+  return nr * N * P * Z * 4;
 }
 
 // Launches the decoder for `ncw` codewords on `stream`.  `rule` is 0
 // (min-sum), 1 (offset-min-sum) or 2 (sum-product); `bf16_messages` selects
 // the message type (min-sum family only).  `codewords_per_block` P = 1 runs
 // one block per codeword, P > 1 runs ceil(ncw / P) blocks of the packed
-// kernel.  `scratch` holds ceil(ncw / P) blocks' shares of
-// ldpc_layered_scratch_bytes each.  Does not synchronise and allocates
-// nothing.  Returns cudaGetLastError().
+// kernel, or (the warp form) as many blocks of the warp kernel as the SMs
+// hold, at most ceil(ncw / P).  `scratch` holds ceil(ncw / P) blocks' shares
+// of ldpc_layered_scratch_bytes each, or (the warp form) one int, which the
+// launch sets to 0 on `stream`.  Does not synchronise and allocates nothing.
+// Returns cudaGetLastError().
 extern "C" int ldpc_layered_decode(
     const void* llr, void* bits, void* ok, void* iters, void* scratch,
     const void* edges, const void* row_start, int ncw, int Z, int nc, int nr,
@@ -612,8 +895,8 @@ extern "C" int ldpc_layered_decode(
     void* stream) {
   const int P = codewords_per_block;
   if (Z < 1 || Z > MAX_THREADS || ncw < 1) return (int)cudaErrorInvalidValue;
-  if (P < 1 || P * Z > MAX_THREADS) return (int)cudaErrorInvalidValue;
   if (rule < RULE_MIN_SUM || rule > RULE_SUM_PRODUCT) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P * Z > MAX_THREADS) return (int)cudaErrorInvalidValue;
   if (rule == RULE_SUM_PRODUCT && bf16_messages) return (int)cudaErrorInvalidValue;
   DecodeArgs a;
   a.Z = Z; a.nc = nc; a.nr = nr; a.E = E; a.out_cols = out_cols;

@@ -19,7 +19,9 @@ binary per schedule that serves every base graph and lifting size.
 Several small-Z codewords per block (the counterpart of the TPU kernel's
 ``lane_pack``): ``codewords_per_block`` = 0 chooses by
 ``auto_codewords_per_block``, 1 runs one block per codeword, P > 1 runs the
-packed kernel of the schedule.  Packing changes no result.
+packed kernel of the schedule (the layered min-sum family at Z <= 32: the
+warp kernel, ``warp_form``, each warp owning its codewords, persistent warps
+taking codewords from a counter).  Packing changes no result.
 
 The flooding kernels run each sweep as a message phase over every (row,
 lane) item and a column phase over every (column, lane) item, with up to
@@ -91,10 +93,12 @@ ARGTYPES = {
     "ldpc_layered": {
         "decode": DECODE_ARGTYPES, "max_degree": [], "max_z": [],
         "max_shared_bytes": [],
-        "shared_bytes": [ctypes.c_int] * 5,  # Z, nc, nr, E, P
+        # rule, bf16_messages, Z, nc, nr, E, P
+        "shared_bytes": [ctypes.c_int] * 7,
         # rule, bf16_messages, P, Z, nc, nr, E
         "blocks_per_sm": [ctypes.c_int] * 7,
-        "scratch_bytes": [ctypes.c_int] * 6,  # rule, bf16_messages, Z, nr, E, P
+        # rule, bf16_messages, Z, nc, nr, E, P
+        "scratch_bytes": [ctypes.c_int] * 7,
     },
     "ldpc_flooding": {
         "decode": FLOODING_DECODE_ARGTYPES, "max_degree": [], "max_z": [],
@@ -150,10 +154,59 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+# The warp form of the layered min-sum family (``ldpc_layered_warp_kernel``):
+# P > 1 codewords per block at Z <= WARP_FORM_MAX_Z, each warp holding
+# ``warp_codewords`` of them outright with their totals and words in shared
+# memory, where the block's warps (at most WARP_FORM_MAX_THREADS threads) and
+# their state fit a block (``warp_form``); else the packed kernel.
+WARP_FORM_MAX_Z = 32
+WARP_FORM_MAX_THREADS = 512
+
+
+def warp_codewords(Z: int, P: int) -> int:
+    """Codewords one warp holds in the warp form: min(P, 32 // Z)."""
+    return min(P, 32 // Z)
+
+
+def warp_count(Z: int, P: int) -> int:
+    """Warps of a warp-form block of ``P`` codewords."""
+    return -(-P // warp_codewords(Z, P))
+
+
+def warp_shared_bytes(Z: int, nc: int, nr: int, E: int, P: int, words: int) -> int:
+    """A warp-form block's shared memory: the edge table (16 bytes an edge)
+    and row records (8 bytes a row), then per warp its totals (nc x G*Z
+    floats) and its words (``words`` 32-bit words per row and lane)."""
+    lanes = warp_codewords(Z, P) * Z
+    return (_align16(16 * E + 8 * nr)
+            + warp_count(Z, P) * (_align16(4 * nc * lanes) + 4 * nr * words * lanes))
+
+
+def _warp_form(Z: int, nc: int, nr: int, E: int, P: int, algorithm: str,
+               message_dtype: str) -> bool:
+    if algorithm == "sum-product" or P < 2 or Z > WARP_FORM_MAX_Z:
+        return False
+    words = COMPRESSED_WORDS[resolve_message_dtype(message_dtype, algorithm)]
+    return (warp_count(Z, P) * 32 <= WARP_FORM_MAX_THREADS
+            and warp_shared_bytes(Z, nc, nr, E, P, words) <= MAX_BLOCK_SHARED_BYTES)
+
+
+def warp_form(params: LDPCParams, P: int, algorithm: str = "min-sum",
+              message_dtype: str = "float32") -> bool:
+    """Whether a layered launch of ``P`` codewords per block runs the warp
+    kernel: the min-sum family, P > 1, Z <= 32, the block's whole warps
+    within WARP_FORM_MAX_THREADS and their totals and words within a block's
+    shared memory (else the packed kernel)."""
+    return _warp_form(params.Z_c, params.num_cols, params.num_rows, len(params.edges[0]), P,
+                      algorithm, message_dtype)
+
+
 def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1,
-                 on_chip: bool = True) -> int:
+                 on_chip: bool = True, algorithm: str = "min-sum",
+                 message_dtype: str = "float32") -> int:
     """Dynamic shared memory of one block of ``P`` codewords: the formula of
-    ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered: totals per
+    ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered, the warp form
+    (``warp_form``): ``warp_shared_bytes``.  Else layered: totals per
     codeword; edge table; row offsets; P > 1: a flag word per codeword.
     Flooding, one codeword per block: FLOODING_SHARED_BYTES, the totals, the
     E*Z messages and, where that still fits a block, the channel LLRs
@@ -169,6 +222,9 @@ def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1,
             return _one_block_bytes(Z, nc, nr, E, one_block_slots(Z, nc, nr, E))
         return (_align16(P * (nc + (E if on_chip else 0)) * Z * 4) + E * 16
                 + (nr + nc + 2) * 4 + P * 16 + 8)
+    if _warp_form(Z, nc, nr, E, P, algorithm, message_dtype):
+        return warp_shared_bytes(Z, nc, nr, E, P,
+                                 COMPRESSED_WORDS[resolve_message_dtype(message_dtype, algorithm)])
     return _align16(P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
 
 
@@ -212,7 +268,8 @@ def scratch_shape(params: LDPCParams, n: int, schedule: str = "layered",
     COMPRESSED_WORDS, P*Z) int32 words in processing order; layered
     sum-product one message per edge, (blocks, E, P*Z) float32; the packed
     flooding kernel one unrounded message per edge, (blocks, P, E, Z)
-    float32."""
+    float32.  The warp form: its codeword counter, (1,) int32 (its messages
+    are on chip)."""
     dtype = resolve_message_dtype(message_dtype, algorithm)
     Z, E = params.Z_c, len(params.edges[0])
     blocks = -(-n // P)
@@ -220,6 +277,8 @@ def scratch_shape(params: LDPCParams, n: int, schedule: str = "layered",
         if P == 1 or packed_flooding_layout(params, P) == LAYOUT_ON_CHIP:
             return None
         return (blocks, P, E, Z), torch.float32
+    if warp_form(params, P, algorithm, message_dtype):
+        return (1,), torch.int32
     if algorithm != "sum-product":
         return (blocks, params.num_rows, COMPRESSED_WORDS[dtype], P * Z), torch.int32
     return (blocks, E, P * Z), dtype
@@ -416,29 +475,35 @@ def flooding_threads(params: LDPCParams, n: int, layout=None, sms: int = 132,
 def _fits(schedule: str, params: LDPCParams, P: int) -> bool:
     """Whether P codewords per block fit: at most MAX_BLOCK_THREADS lanes in
     whole warps, and the shared memory of the smallest form (packed
-    flooding: messages in the scratch)."""
+    flooding: messages in the scratch; layered: the packed kernel, which
+    takes every launch of the min-sum family that the warp form does not)."""
     if schedule == "flooding" and P == 1:
         return params.Z_c <= MAX_BLOCK_THREADS  # a cluster holds what a block does not
     E = len(params.edges[0])
     return (
         -(-(P * params.Z_c) // 32) * 32 <= MAX_BLOCK_THREADS
         and shared_bytes(schedule, params.Z_c, params.num_cols, params.num_rows, E, P,
-                         on_chip=False) <= MAX_BLOCK_SHARED_BYTES
+                         on_chip=False, algorithm="sum-product") <= MAX_BLOCK_SHARED_BYTES
     )
 
 
-# The automatic choice of codewords per block, from the small-Z tables measured
-# on an H100 (PERF.md; tools/small_z.py).  Two cuts, both read off the tables:
-# - PACK_MAX_LANES: a packed block is slower per sweep than a one-codeword
-#   block and lasts as long as its slowest codeword; above 64 lanes per block
-#   packing moved no measured case by more than 12 % either way.
-# - PACK_MIN_BLOCKS: the card holds 18 to 32 small-Z blocks per SM, so a launch
-#   gains only where blocks are left over after packing.  With 1,024 blocks
-#   left, launches lost up to 43 % under early termination with a 50-iteration
-#   budget (the launch lasts as long as its stragglers' blocks); with 4,096
-#   left the worst measured loss is 7 % and the largest gain 2.6 times.
-# The sweeps' default calls (256 to 2,048 codewords) are below the floor and
-# run one codeword per block; an explicit ``codewords_per_block`` packs them.
+# The automatic choice of codewords per block, from tools/small_z.py's
+# packing table of the warp form (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+# - The min-sum family at Z <= 32 takes the warp form with as many warps per
+#   SM as the launch fills: W = min(``warp_form_warps``, ceil(n / (sms * G)))
+#   warps of G = 32 // Z codewords, P = G * W (else one codeword per block
+#   where P would be 1).  In the table that rule was within 12 % of the best
+#   P at every Z <= 20 and batch (256 to 16,384 codewords, both budgets)
+#   and ahead of one codeword per block everywhere but Z=8 at 256 codewords
+#   (2 % behind, where both run a warp or two per SM): at Z=20 by 21 % at
+#   2,048 codewords and 16 % at 16,384, at Z=8 by 3.1 times and at Z=2 by 7.7
+#   times at 16,384.
+# - Sum-product keeps the packed kernel and its rule (PR 3's cuts): the
+#   largest of PACK_CHOICES that keeps P*Z within PACK_MAX_LANES, fills the
+#   block's warps better than one codeword does and leaves PACK_MIN_BLOCKS
+#   blocks.  PACK_MIN_BLOCKS: with 1,024 blocks left, launches lost up to
+#   43 % under early termination with a 50-iteration budget; with 4,096 the
+#   worst measured loss was 7 % (min-sum, the packed kernel).
 # Flooding never packs: its one-codeword kernel deals a codeword's items over
 # the whole block, and in the small-Z tables it beat every P at every Z and
 # batch (PERF.md §6).
@@ -452,30 +517,48 @@ def _warp_fill(lanes: int) -> float:
     return lanes / (-(-lanes // 32) * 32)
 
 
-def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str) -> int:
-    """Codewords per block for ``n`` codewords of this code: 1 for flooding;
-    layered: the largest of ``PACK_CHOICES`` that keeps P*Z within
-    ``PACK_MAX_LANES``, fills the block's warps better than one codeword
-    does, leaves at least ``PACK_MIN_BLOCKS`` blocks and fits a block's
-    threads and shared memory; else 1."""
+def warp_form_warps(params: LDPCParams, message_dtype: str = "float32") -> int:
+    """The most warps of the warp form (32 // Z codewords each) that one
+    block, and so one SM, holds: a block's shared memory over one warp's
+    totals and words, at most WARP_FORM_MAX_THREADS / 32."""
+    Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    words = COMPRESSED_WORDS[resolve_message_dtype(message_dtype, "min-sum")]
+    table = _align16(16 * E + 8 * nr)
+    per_warp = warp_shared_bytes(Z, nc, nr, E, 32 // Z, words) - table
+    return min(WARP_FORM_MAX_THREADS // 32, (MAX_BLOCK_SHARED_BYTES - table) // per_warp)
+
+
+def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str,
+                             algorithm: str = "min-sum", message_dtype: str = "float32",
+                             sms: int = 132) -> int:
+    """Codewords per block for ``n`` codewords of this code on ``sms`` SMs
+    (see above): 1 for flooding; the min-sum family at Z <= 32 the warp form
+    that fills the SMs; sum-product the packed kernel's cuts; else 1."""
     Z = params.Z_c
-    best = 1
     if schedule == "flooding":
+        return 1
+    if algorithm == "sum-product":
+        best = 1
+        for P in PACK_CHOICES:
+            if (P * Z <= PACK_MAX_LANES and _warp_fill(P * Z) > _warp_fill(Z)
+                    and -(-n // P) >= PACK_MIN_BLOCKS and _fits(schedule, params, P)):
+                best = P
         return best
-    for P in PACK_CHOICES:
-        if (P * Z <= PACK_MAX_LANES and _warp_fill(P * Z) > _warp_fill(Z)
-                and -(-n // P) >= PACK_MIN_BLOCKS and _fits(schedule, params, P)):
-            best = P
-    return best
+    if Z > WARP_FORM_MAX_Z:
+        return 1
+    G = 32 // Z
+    P = G * min(warp_form_warps(params, message_dtype), max(1, -(-n // (sms * G))))
+    return P if P > 1 and warp_form(params, P, algorithm, message_dtype) else 1
 
 
 def resolve_codewords_per_block(params: LDPCParams, n: int, schedule: str,
-                                codewords_per_block: int) -> int:
+                                codewords_per_block: int, algorithm: str = "min-sum",
+                                message_dtype: str = "float32", sms: int = 132) -> int:
     """0 -> the automatic choice; an explicit value is checked against the
     block's threads and shared memory and raises where it does not fit."""
     P = int(codewords_per_block)
     if P == 0:
-        return auto_codewords_per_block(params, n, schedule)
+        return auto_codewords_per_block(params, n, schedule, algorithm, message_dtype, sms)
     if P < 1 or not _fits(schedule, params, P):
         raise ValueError(
             f"codewords_per_block={P} does not fit one block at Z={params.Z_c} "
@@ -612,21 +695,37 @@ def _block_slots(params: LDPCParams, layout: int, P: int = 1) -> int:
     return one_block_slots(params.Z_c, params.num_cols, params.num_rows, len(params.edges[0]))
 
 
+def _any_layered_scratch(params: LDPCParams, n: int, algorithm: str, dtype, P: int):
+    """A layered launch's scratch for a build of other sources (``decode``'s
+    ``_lib``: a probe's variant, another tree's kernel): the packed kernel's
+    wherever P > 1, which also holds the warp form's counter."""
+    if algorithm == "sum-product" or P == 1:
+        return scratch_shape(params, n, "layered", algorithm, str(dtype).split(".")[-1], P)
+    return ((-(-n // P), params.num_rows, COMPRESSED_WORDS[dtype], P * params.Z_c),
+            torch.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_shape(params: LDPCParams, n: int, schedule: str,
-                 codewords_per_block: int = 0, sms: int = 132) -> dict:
+                 codewords_per_block: int = 0, sms: int = 132, algorithm: str = "min-sum",
+                 message_dtype: str = "float32") -> dict:
     """How ``decode`` launches ``n`` codewords: codewords per block, threads
-    per block and, for flooding, the layout of the messages
-    (``flooding_layout``, ``packed_flooding_layout``; layered: 0)."""
-    P = resolve_codewords_per_block(params, n, schedule, codewords_per_block)
+    per block and the layout of the messages (flooding: ``flooding_layout``,
+    ``packed_flooding_layout``; layered: 1 for the warp form, its messages on
+    chip, else 0, the scratch)."""
+    P = resolve_codewords_per_block(params, n, schedule, codewords_per_block, algorithm,
+                                    message_dtype, sms)
     if schedule == "flooding":
         layout = (flooding_layout(params) if P == 1
                   else packed_flooding_layout(params, P))
         threads = flooding_threads(params, n, layout, sms, P)
+    elif warp_form(params, P, algorithm, message_dtype):
+        layout = LAYOUT_ON_CHIP
+        threads = warp_count(params.Z_c, P) * 32
     else:
         layout = LAYOUT_SCRATCH
         threads = -(-(P * params.Z_c) // 32) * 32
@@ -665,7 +764,8 @@ def blocks_per_sm(params: LDPCParams, schedule: str = "layered",
             params.num_rows, len(params.edges[0])]
     if schedule == "flooding":
         shape = launch_shape(params, n, schedule, codewords_per_block,
-                             _sm_count(torch.device("cuda", torch.cuda.current_device())))
+                             _sm_count(torch.device("cuda", torch.cuda.current_device())),
+                             algorithm, message_dtype)
         args += [shape["layout"], shape["threads"],
                  _block_slots(params, shape["layout"], shape["codewords_per_block"])]
     n = getattr(_library(name), name + "_blocks_per_sm")(*args)
@@ -830,10 +930,12 @@ def decode(
     update sweeps, ``alpha`` after.
 
     codewords_per_block: 0 (default) packs several small-Z codewords into
-    one block by ``auto_codewords_per_block`` (from Z and the batch: only
-    launches of 8,192 codewords and more are packed); 1 runs one block per
-    codeword; P > 1 asks for P and raises where P*Z exceeds a block's
-    threads or shared memory.  Results do not depend on it.
+    one block by ``auto_codewords_per_block`` (from Z, the batch and the
+    rule: the min-sum family at Z <= 32 takes the warp form at any batch,
+    sum-product packs only launches of 8,192 codewords and more at Z <= 16);
+    1 runs one block per codeword; P > 1 asks for P and raises where P*Z
+    exceeds a block's threads or shared memory.  Results do not depend on
+    it.
 
     ``_threads`` (internal, for ``tools/flooding_shapes.py``,
     ``exp_bf16.py`` and ``exp_kernel_tiles.py``, which time the alternatives
@@ -859,7 +961,7 @@ def decode(
         params, llr, algorithm, schedule, message_dtype, channel_format,
         output_format, alpha_schedule)
     if codewords_per_block:  # an explicit value must fit, on any device
-        resolve_codewords_per_block(params, 0, schedule, codewords_per_block)
+        resolve_codewords_per_block(params, 0, schedule, codewords_per_block, algorithm)
     if not llr.is_cuda:
         return decode_plain(
             params, llr, iterations=iterations, algorithm=algorithm,
@@ -890,9 +992,11 @@ def decode(
     batch_shape = llr.shape[:-1]
     flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
     n = flat.shape[0]
-    shape = launch_shape(params, n, schedule, codewords_per_block, _sm_count(dev))
+    shape = launch_shape(params, n, schedule, codewords_per_block, _sm_count(dev),
+                         algorithm, message_dtype)
     P, layout = shape["codewords_per_block"], shape["layout"]
     flooding = schedule == "flooding"
+    rule, bf16 = _RULE_CODES[algorithm], int(dtype == torch.bfloat16)
     if _threads and flooding:
         shape["threads"] = int(_threads)  # the kernel checks it
     if flooding:
@@ -900,8 +1004,11 @@ def decode(
                                               _block_slots(params, layout, P))
         assert need == flooding_shared_bytes(params, layout, P)
     else:
-        need = lib.ldpc_layered_shared_bytes(Z, nc, nr, E, P)
-        assert need == shared_bytes(schedule, Z, nc, nr, E, P)
+        # another build's sources (``_lib``) may size their blocks otherwise
+        need = (lib.ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P) if _lib is None
+                else 0)
+        assert _lib is not None or need == shared_bytes(
+            schedule, Z, nc, nr, E, P, algorithm=algorithm, message_dtype=message_dtype)
     with torch.cuda.device(dev):
         have = getattr(lib, name + "_max_shared_bytes")()
     if need > have:
@@ -919,12 +1026,15 @@ def decode(
         # scratch for the check-to-variable messages; never zero-filled
         # (sweep 0 does not read it)
         spec = scratch_shape(params, n, schedule, algorithm, message_dtype, P)
+        if _lib is not None and not flooding:
+            spec = _any_layered_scratch(params, n, algorithm, dtype, P)
         scratch = None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
-        if scratch is not None and not flooding:
-            share = lib.ldpc_layered_scratch_bytes(
-                _RULE_CODES[algorithm], int(dtype == torch.bfloat16), Z, nr, E, P)
-            assert share * spec[0][0] == scratch.numel() * scratch.element_size()
-        assert (scratch is not None) == (layout == LAYOUT_SCRATCH and (P > 1 or not flooding))
+        if not flooding and _lib is None:
+            share = lib.ldpc_layered_scratch_bytes(rule, bf16, Z, nc, nr, E, P)
+            assert (share * -(-n // P) if layout == LAYOUT_SCRATCH else 4) == (
+                scratch.numel() * scratch.element_size())
+        assert _lib is not None or (scratch is not None) == (
+            not flooding or (layout == LAYOUT_SCRATCH and P > 1))
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
         block = ([P, layout, shape["threads"], _block_slots(params, layout, P)]
@@ -936,8 +1046,7 @@ def decode(
                 None if scratch is None else scratch.data_ptr(),
                 *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
                 int(channel_format == "d"), lo, hi, int(iterations),
-                int(bool(early_termination)), _RULE_CODES[algorithm],
-                int(dtype == torch.bfloat16), *block,
+                int(bool(early_termination)), rule, bf16, *block,
                 float(alpha), float(beta), float(a0), int(n0), stream,
             )
         if err != 0:

@@ -3,7 +3,7 @@
 ``ncu`` cannot profile on the machine with the card, so this tool measures
 the split that its stall reasons would give by building variants of
 ``csrc/ldpc_layered.cu`` that leave one part of the work out, or do it
-another way, and timing each, 'd' in, 'sys' out.  Two families:
+another way, and timing each, 'd' in, 'sys' out.  Four families:
 
 - ``min-sum`` (V1, ``ldpc_layered_min_sum_kernel``) at the flagship shape
   (BG1 A=8424 Z=384, 1.0 dB, alpha 0.8125, 12 sweeps), at 1,024 codewords
@@ -56,7 +56,26 @@ another way, and timing each, 'd' in, 'sys' out.  Two families:
   1,024 codewords: ``kernel``; ``max_deg_slots``, every row at MAX_DEG
   predicated slots (the row before the degree dispatch, whose results must
   equal the kernel's); ``no_scratch``, ``no_row_barrier`` and
-  ``no_scratch_no_barrier`` as above.
+  ``no_scratch_no_barrier`` as above;
+
+- ``packed`` (V7-layered, ``ldpc_layered_warp_kernel``) at config #1's code
+  (BG2 A=100 Z=20, 2.0 dB, 12 sweeps; P = 2, 4, 16) and BG2 A=32 Z=8 (P = 4,
+  8, 16), each beside the one-codeword kernel (P=1) at the same launch, at
+  2,048 and 65,536 codewords: ``kernel``; ``no_scratch`` (no word loaded or
+  stored); ``no_row_barrier`` (no ``__syncwarp`` between rows);
+  ``no_stragglers`` (a warp's codewords stop when its first one passes);
+  ``one_round`` (not persistent: a block for every P codewords, each warp
+  its own, exact); ``jump_table`` (the one-codeword kernel's dispatch of a
+  row by its degree, exact);
+
+- ``packed_block``: the same launches in ``ldpc_layered_packed_kernel``
+  (every min-sum launch of P > 1 sent there, as before the warp form):
+  ``kernel``, ``no_scratch``, ``no_row_barrier``, ``no_stragglers`` (every
+  codeword of a block stops at the block's first pass), ``warp_aligned``
+  (codewords padded to whole warps, 32 / Z a warp, the row barrier a
+  ``__syncwarp``, exact), ``words_on_chip`` (the words in shared memory,
+  exact) and ``v1_row`` (``min_sum_row`` in place of the generic row,
+  exact).
 
 The variants that are not exact compute wrong bits; only their times mean
 anything, so every variant is timed run to the budget (the same work
@@ -66,9 +85,10 @@ built in ``build/ldpc_3gpp_tpu_torch/probe/`` with the package's nvcc flags,
 one ``nvcc`` each, all started together (a variant that does not build is
 reported, not fatal), and launched through ``decode``'s internal ``_lib``.
 
-    python3 -m ldpc_3gpp_tpu_torch.tools.layered_probe [min-sum] [sum-product] [batch ...]
+    python3 -m ldpc_3gpp_tpu_torch.tools.layered_probe [min-sum] [sum-product] [packed]
+        [packed_block] [batch ...]
 
-prints one JSON line per family and batch (default: both families, each at
+prints one JSON line per family and batch (default: every family, each at
 its own batches) with the card's name and power limit, each variant's
 registers, stack and spills (``ptxas -v``), its blocks per SM (the CUDA
 runtime's occupancy at the launch) and its times (means of several launches
@@ -167,12 +187,13 @@ _LINEAR_VS_TREE = (
 )
 # more dynamic shared memory than half an SM's 233,472 bytes: one block per SM
 _ONE_BLOCK_PER_SM = (
-    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(a.Z, a.nc, a.nr, a.E, P);\n",
-     "  const int smem_bytes = max(ldpc_layered_shared_bytes(a.Z, a.nc, a.nr, a.E, P), "
-     "120 * 1024);\n",
-     1),
-    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(Z, nc, nr, E, P);\n",
-     "  const int smem_bytes = max(ldpc_layered_shared_bytes(Z, nc, nr, E, P), 120 * 1024);\n", 1),
+    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, a.Z, a.nc, a.nr, "
+             "a.E, P);\n",
+     "  const int smem_bytes = max(ldpc_layered_shared_bytes(rule, bf16, a.Z, a.nc, a.nr, a.E, "
+     "P), 120 * 1024);\n", 1),
+    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P);\n",
+     "  const int smem_bytes = max(ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P), "
+     "120 * 1024);\n", 1),
 )
 # the min-sum kernel's totals on 26 columns (column c at c mod 26) and a
 # budget of three blocks per SM
@@ -192,12 +213,13 @@ _THREE_BLOCKS = (
      f"  DecodeArgs folded = a;\n  folded.nc = {FOLDED_COLUMNS};\n  if (active)\n"
      "    load_totals(totals, llr + cw * (size_t)((a.d_input ? nc - 2 : nc) * Z), z, folded);\n"
      "  __syncthreads();\n\n  // this thread's lane of the codeword's words.", 1),
-    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(a.Z, a.nc, a.nr, a.E, P);\n",
-     f"  const int smem_bytes = ldpc_layered_shared_bytes(a.Z, P > 1 || SUM_PRODUCT ? a.nc : "
-     f"{FOLDED_COLUMNS}, a.nr, a.E, P);\n", 1),
-    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(Z, nc, nr, E, P);\n",
-     f"  const int smem_bytes = ldpc_layered_shared_bytes(Z, P > 1 || rule == RULE_SUM_PRODUCT ? "
-     f"nc : {FOLDED_COLUMNS}, nr, E, P);\n", 1),
+    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, a.Z, a.nc, a.nr, "
+             "a.E, P);\n",
+     f"  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, a.Z, P > 1 || SUM_PRODUCT ? "
+     f"a.nc : {FOLDED_COLUMNS}, a.nr, a.E, P);\n", 1),
+    (SOURCE, "  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P);\n",
+     f"  const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, Z, P > 1 || rule == "
+     f"RULE_SUM_PRODUCT ? nc : {FOLDED_COLUMNS}, nr, E, P);\n", 1),
 )
 # every row's words loaded, in sweep 0 too, their values then replaced by
 # zeros there: no branch, more loads
@@ -297,6 +319,117 @@ SP_VARIANTS = {
 P3 = dict(BG=2, A=2048, G=6144, Q_m=2)
 SP_DECODE_KW = dict(iterations=8, algorithm="sum-product", channel_format="d",
                     output_format="sys")
+# The packed kernel (V7-layered, ``ldpc_layered_packed_kernel``) at config
+# #1's code (BG2 A=100 Z=20, 2.0 dB, 12 sweeps) with P = 2 and 4, and at
+# Z=8 (BG2 A=32 G=64, 2.0 dB) with P = 4 and 8; each beside the
+# one-codeword kernel (P=1) at the same launch.
+_PK_NO_LOAD = (SOURCE, "          const RowMsgs old = ahead.next(words, r, nr, L, first);\n",
+               "          const RowMsgs old = RowMsgs{0u, 0u, 0u};\n", 1)
+_PK_NO_STORE = (HEADER,
+                "  store_row_msgs<MSG>(w, L, m1s, m2s, signs | (idx << MSG_IDX_SHIFT));\n", "", 1)
+_PK_ROW_END = ("              e0, deg, z, Z, first, alpha_t, a.offset_rule, a.beta);\n"
+               "        }\n      }\n")
+_PK_NO_BARRIER = (SOURCE, _PK_ROW_END + "      __syncthreads();\n", _PK_ROW_END, 1)
+# codewords padded to whole warps, 32 / Z of them a warp (Z <= 32), and the
+# row barrier a __syncwarp: exact, since no codeword straddles a warp
+_PK_WARP_ALIGNED = (
+    (SOURCE, "  const int k = t / Z;       // codeword of this thread within the block\n"
+             "  const int z = t - k * Z;   // its lane\n",
+     "  const int G = Z <= 32 ? 32 / Z : 1;  // codewords per warp\n"
+     "  const int k = (t >> 5) * G + (t & 31) / Z;\n"
+     "  const int z = (t & 31) - ((t & 31) / Z) * Z;\n", 1),
+    (SOURCE, "  const bool active = k < P && cw < (size_t)ncw;\n",
+     "  const bool active = (t & 31) / Z < G && k < P && cw < (size_t)ncw;\n", 1),
+    (SOURCE, "((size_t)E * L) + t;\n", "((size_t)E * L) + k * Z + z;\n", 1),
+    (SOURCE, "((size_t)nr * RowWords<MSG>::N * L) + t;\n",
+     "((size_t)nr * RowWords<MSG>::N * L) + k * Z + z;\n", 1),
+    (SOURCE, _PK_ROW_END + "      __syncthreads();\n", _PK_ROW_END + "      __syncwarp();\n", 1),
+    (SOURCE, "                                                         : (P * Z + 31) / 32 * 32;\n",
+     "      : (P > 1 && Z <= 32 ? (P + 32 / Z - 1) / (32 / Z) * 32 : (P * Z + 31) / 32 * 32);\n",
+     1),
+)
+# the P codewords' words in shared memory after the flag words, not in the
+# scratch (exact)
+_PK_WORDS_ON_CHIP = (
+    (SOURCE, "  unsigned* words = static_cast<unsigned*>(scratch) +\n"
+             "                    (size_t)blockIdx.x * ((size_t)nr * RowWords<MSG>::N * L) + t;\n",
+     "  unsigned* words = reinterpret_cast<unsigned*>(flags + P) + t;\n", 1),
+    (SOURCE, "               (size_t)(nr + 1) * 4 + (P > 1 ? (size_t)P * 4 : 0));\n",
+     "               (size_t)(nr + 1) * 4 + (P > 1 ? (size_t)P * 4 : 0) +\n"
+     "               (P > 1 && rule != RULE_SUM_PRODUCT ? (size_t)nr * (bf16_messages ? 2 : 3) * "
+     "P * Z * 4 : 0));\n", 1),
+)
+# the row of the one-codeword min-sum kernel (min_sum_row: byte offsets and
+# wrap lanes in the edge records, no `first` select, the rule normalized
+# min-sum at compile time) in place of layered_row_compressed
+_PK_V1_ROW = (
+    (SOURCE, "    int4 ed = edges_g[i];\n    ed.z *= P;\n    edges[i] = ed;\n",
+     "    int4 ed = edges_g[i];\n    if constexpr (SUM_PRODUCT) {\n      ed.z *= P;\n"
+     "    } else {\n      ed.z = 4 * (ed.x + ed.y);\n      ed.w = Z - ed.y;\n    }\n"
+     "    edges[i] = ed;\n", 1),
+    (SOURCE, "          bad |= layered_row_compressed<MSG>(\n"
+             "              totals, old, words + (size_t)r * RowWords<MSG>::N * L, L, edges,\n"
+             "              e0, deg, z, Z, first, alpha_t, a.offset_rule, a.beta);\n",
+     "          bad |= min_sum_row<MSG, false>(\n"
+     "              reinterpret_cast<unsigned char*>(totals), edges + e0, deg, old,\n"
+     "              words + (size_t)r * RowWords<MSG>::N * L, L, z, 4 * z, 4 * Z, alpha_t,\n"
+     "              a.beta);\n", 1),
+)
+# every codeword of a block stops when the first one passes (not exact)
+_PK_NO_STRAGGLERS = (SOURCE, "      if (__syncthreads_and(done)) break;\n",
+                     "      if (__syncthreads_or(done)) break;\n", 1)
+# every min-sum launch of P > 1 in the packed kernel, as before the warp form
+_PK_BLOCK_FORM = (
+    (SOURCE, "  if (rule == RULE_SUM_PRODUCT || P < 2 || Z > 32) return false;\n",
+     "  return false;\n", 1),
+)
+BLOCK_VARIANTS = {
+    "kernel": _PK_BLOCK_FORM,
+    "no_scratch": _PK_BLOCK_FORM + (_PK_NO_LOAD, _PK_NO_STORE),
+    "no_row_barrier": _PK_BLOCK_FORM + (_PK_NO_BARRIER,),
+    "warp_aligned": _PK_BLOCK_FORM + _PK_WARP_ALIGNED,
+    "words_on_chip": _PK_BLOCK_FORM + _PK_WORDS_ON_CHIP,
+    "v1_row": _PK_BLOCK_FORM + _PK_V1_ROW,
+    "no_stragglers": _PK_BLOCK_FORM + (_PK_NO_STRAGGLERS,),
+}
+# The warp kernel (``ldpc_layered_warp_kernel``) at the same launches.
+_WK_ROW = ("          bad |= warp_row<MSG, OFFSET>(totals, edges + cur.x, cur.y, cur_old, "
+           "words + w, L, z,\n                                       z4, Z4, alpha_t, a.beta);\n")
+_WK_ONE_ROUND = (
+    (SOURCE, "    if (lane == 0) first_cw = atomicAdd(next, taken);\n",
+     "    if (lane == 0) first_cw = (blockIdx.x * (blockDim.x >> 5) + warp) * G;\n", 1),
+    (SOURCE, "    __syncwarp();  // every lane's reads of this state before the next codeword's "
+             "loads\n  }\n",
+     "    break;\n  }\n", 1),
+    (SOURCE, "  return min((ncw + P - 1) / P, max(1, sms * per_sm));\n",
+     "  return (ncw + P - 1) / P;\n", 1),
+)
+PACKED_VARIANTS = {
+    "kernel": (),
+    "no_scratch": ((SOURCE, "        old = load_row_msgs<MSG>(words + wn, L);\n",
+                    "        old = RowMsgs{0u, 0u, 0u};\n", 1),
+                   (SOURCE, "  store_row_msgs<MSG>(w, Z, m1s, m2s, signs | (idx << "
+                            "MSG_IDX_SHIFT));\n", "", 1)),
+    "no_row_barrier": ((SOURCE, _WK_ROW + "        __syncwarp();\n", _WK_ROW, 1),),
+    # a warp's codewords stop when its first one passes (not exact)
+    "no_stragglers": ((SOURCE, "        if (__all_sync(FULL_WARP, done)) break;\n",
+                       "        if (__any_sync(FULL_WARP, passed)) break;\n", 1),),
+    # not persistent: a block for every P codewords, each warp its own G (exact)
+    "one_round": _WK_ONE_ROUND,
+    # the rows dispatched by the one-codeword kernel's jump table on the
+    # degree (min_sum_row), not a chain of tests (exact)
+    "jump_table": ((SOURCE, "          bad |= warp_row<MSG, OFFSET>(",
+                    "          bad |= min_sum_row<MSG, OFFSET>(", 1),),
+}
+CONFIG1 = dict(BG=2, A=100, G=200, Q_m=2)
+Z8 = dict(BG=2, A=32, G=64, Q_m=2)
+# (launch, code, codewords per block) at each batch; P=1 is the one-codeword
+# kernel, which no packed variant changes
+PACKED_LAUNCHES = (("z20_p1", CONFIG1, 1), ("z20_p2", CONFIG1, 2), ("z20_p4", CONFIG1, 4),
+                   ("z20_p16", CONFIG1, 16), ("z8_p1", Z8, 1), ("z8_p4", Z8, 4),
+                   ("z8_p8", Z8, 8), ("z8_p16", Z8, 16))
+PACKED_BATCHES = (2048, 65536)
+PACKED_REPS = {2048: (20, 3), 65536: (2, 3)}
 # family -> (variants, code, Es/N0, decode arguments, kernel instantiation in
 # ptxas's names, the variants that compute the kernel's bits, batches,
 # repetitions by batch)
@@ -305,6 +438,13 @@ FAMILIES = {
                 BATCHES, REPS),
     "sum-product": (SP_VARIANTS, P3, 2.0, SP_DECODE_KW, "_Z22ldpc_layered_sp_kernel",
                     ("kernel", "max_deg_slots"), (1024,), {1024: (10, 5)}),
+    "packed": (PACKED_VARIANTS, CONFIG1, 2.0, DECODE_KW,
+               "_Z24ldpc_layered_warp_kernelIfLb0EE", ("kernel", "one_round", "jump_table"),
+               PACKED_BATCHES, PACKED_REPS),
+    "packed_block": (BLOCK_VARIANTS, CONFIG1, 2.0, DECODE_KW,
+                     "_Z26ldpc_layered_packed_kernelILb0EfE",
+                     ("kernel", "warp_aligned", "words_on_chip", "v1_row"), PACKED_BATCHES,
+                     PACKED_REPS),
 }
 
 
@@ -342,6 +482,54 @@ def build_variants(family: str) -> dict:
     family's one-codeword float32 kernel)}."""
     return build_sources({v: write_variant(v, family) for v in FAMILIES[family][0]},
                          "ldpc_layered", FAMILIES[family][4])
+
+
+def probe_packed(device, batches=None, family: str = "packed") -> dict:
+    """{batch: record}: each variant's ptxas record and, per launch of
+    PACKED_LAUNCHES, its blocks per SM and times run to the budget, with
+    early termination for those that compute the kernel's bits (checked
+    equal).  The one-codeword launches (P=1) run the kernel's build only."""
+    variants, _, esn0_db, kw, _, exact, default_batches, reps_by_n = FAMILIES[family]
+    libs = build_variants(family)
+    budget = dict(kw, early_termination=False)
+    out = {}
+    for n in tuple(batches or default_batches):
+        reps, means = reps_by_n.get(n, (2, 3))
+        launches = {}
+        for name, fields, P in PACKED_LAUNCHES:
+            params = LDPCParams(**fields)
+            d = noisy_llrs(params, n, esn0_db, 21, device)
+            rows, reference = {}, None
+            for v, (lib, ptxas) in libs.items():
+                if P == 1 and v != "kernel":
+                    continue
+                if lib is None:
+                    rows[v] = ptxas
+                    continue
+
+                def times(kw):
+                    return [time_ms(lambda: decoder_cuda.decode(
+                        params, d, _lib=lib, codewords_per_block=P, **kw), reps)
+                        for _ in range(means)]
+
+                rec = dict(ptxas, blocks_per_sm=lib.ldpc_layered_blocks_per_sm(
+                    0, 0, P, params.Z_c, params.num_cols, params.num_rows,
+                    len(params.edges[0])), budget_ms=times(budget), budget=kw["iterations"])
+                if v in exact:
+                    res = decoder_cuda.decode(params, d, _lib=lib, codewords_per_block=P, **kw)
+                    torch.cuda.synchronize()
+                    got = (res.bits, res.parity_ok, res.iterations)
+                    if reference is None:
+                        reference = got
+                    elif not all(torch.equal(a, b) for a, b in zip(got, reference)):
+                        raise AssertionError(f"{v} differs from the kernel at {name}")
+                    rec["early_termination_ms"] = times(kw)
+                    rec["mean_iterations"] = float(res.iterations.float().mean())
+                rows[v] = rec
+            launches[name] = dict(Z=params.Z_c, A=params.A, P=P, variants=rows)
+            del d
+        out[n] = dict(codewords=n, launches=launches)
+    return out
 
 
 def build_sources(sources: dict, name: str, entry: str) -> dict:
@@ -490,7 +678,9 @@ def main(argv=None) -> int:
     card = card_name_and_power_limit()
     for family in families:
         _, fields, esn0_db, kw = FAMILIES[family][:4]
-        for rec in probe(dev, family, batches).values():
+        run = (probe_packed(dev, batches, family) if family.startswith("packed")
+               else probe(dev, family, batches))
+        for rec in run.values():
             print(json.dumps({"card": card, "family": family,
                               "shape": dict(fields, esn0_db=esn0_db, **kw), **rec}), flush=True)
     return 0

@@ -11,7 +11,8 @@ records the min-sum kernel's blocks per SM at the flagship shape; then:
 
 - every source but the first against the plain version, tolerance 0, at
   small shapes (BG1 Z=3, 5, 20 and BG2 Z=15, 20, 52, 384, 64 codewords at
-  1.0 dB): min-sum with early termination 'd'/'sys',
+  1.0 dB; one codeword per block, and four at Z <= 32): min-sum with early
+  termination 'd'/'sys',
   offset-min-sum run to budget, bfloat16 messages with an alpha schedule,
   offset-min-sum with beta 0.5 in the natural order;
 - at the flagship shape (BG1 A=8424 Z=384, 1.0 dB, 12 iterations, 'd' in,
@@ -19,7 +20,11 @@ records the min-sum kernel's blocks per SM at the flagship shape; then:
   (offset-min-sum) at 1,024 codewords, V1 and V4-layered at 32,768 (the
   ``flagship_headline`` cell's step), every source's bits, parity flags and
   iterations equal to the first's; V2 (layered sum-product at P3's shape)
-  and V7-layered (config #1's call, four codewords per block) too;
+  and the small-Z launches too: V7-layered (config #1's call, BG2 A=100
+  Z=20, 2,048 codewords at 2.0 dB, four codewords per block), V1-z20 (the
+  same with one), V7-layered@65536 (65,536 codewords) and V7-layered-z8
+  (BG2 A=32 Z=8, 16,384 codewords), the last two at the codewords per block
+  of this package's rule, V7-layered@65536 also with 8;
 - each row timed in turns, the sources forwards then backwards (for two:
   first, second, second, first; CUDA events, a mean of several launches).
 
@@ -45,6 +50,7 @@ from .roofline import require_equal
 from .small_z import noisy_llrs, params_for_z
 
 FOLDER = "turns"
+CONFIG1, Z8 = layered_probe.CONFIG1, layered_probe.Z8
 DS = dict(channel_format="d", output_format="sys")
 V1 = dict(iterations=12, algorithm="min-sum", **DS)
 # (row, code, Es/N0, codewords, launches per mean, decode arguments)
@@ -59,8 +65,11 @@ ROWS = (
      dict(V1, early_termination=False)),
     ("V2", dict(BG=2, A=2048, G=6144, Q_m=2), 2.0, 1024, 20,
      dict(iterations=8, algorithm="sum-product", **DS)),
-    ("V7-layered", dict(BG=2, A=100, G=200, Q_m=2), 2.0, 2048, 20,
-     dict(V1, codewords_per_block=4)),
+    ("V7-layered", CONFIG1, 2.0, 2048, 20, dict(V1, codewords_per_block=4)),
+    ("V1-z20", CONFIG1, 2.0, 2048, 20, dict(V1, codewords_per_block=1)),
+    ("V7-layered@65536", CONFIG1, 2.0, 65536, 3, V1),
+    ("V7-layered@65536-P8", CONFIG1, 2.0, 65536, 3, dict(V1, codewords_per_block=8)),
+    ("V7-layered-z8", Z8, 2.0, 16384, 5, V1),
 )
 SMALL_CODES = ((1, 3), (1, 5), (1, 20), (2, 15), (2, 20), (2, 52), (2, 384))
 SMALL_KW = (
@@ -114,15 +123,19 @@ def main(argv=None) -> int:
         for kw in SMALL_KW:
             want = decoder_cuda.decode_plain(params, d, **kw)
             for name in others:
-                got = decoder_cuda.decode(params, d, _lib=libs[name], codewords_per_block=1, **kw)
-                torch.cuda.synchronize()
-                require_equal(got, want, (name, bg, Z, kw))
-                cases += 1
+                for P in (1, 4) if Z <= 32 else (1,):
+                    got = decoder_cuda.decode(params, d, _lib=libs[name], codewords_per_block=P,
+                                              **kw)
+                    torch.cuda.synchronize()
+                    require_equal(got, want, (name, bg, Z, P, kw))
+                    cases += 1
     print(json.dumps({"card": card, "plain_cases_equal": cases, "tolerance": 0}), flush=True)
     order = list(libs) + list(reversed(libs))
     for row, fields, esn0_db, n, reps, kw in ROWS:
         params = LDPCParams(**fields)
         d = noisy_llrs(params, n, esn0_db, 21, dev)
+        kw = dict(kw, codewords_per_block=decoder_cuda.resolve_codewords_per_block(
+            params, n, "layered", kw.get("codewords_per_block", 0), kw["algorithm"]))
         ref = decoder_cuda.decode(params, d, _lib=libs[first], **kw)
         for name in others:
             got = decoder_cuda.decode(params, d, _lib=libs[name], **kw)
@@ -133,6 +146,7 @@ def main(argv=None) -> int:
             lib = libs[name]
             ms[name].append(time_ms(lambda: decoder_cuda.decode(params, d, _lib=lib, **kw), reps))
         print(json.dumps({"card": card, "row": row, "codewords": n, "ms": ms,
+                          "codewords_per_block": kw["codewords_per_block"],
                           "mean_iterations": float(ref.iterations.float().mean())}), flush=True)
         del d
     return 0

@@ -285,7 +285,8 @@ def measure_variant(params, llr, reps, plain=True, **kw):
     n = res.iterations.numel()
     schedule = kw.get("schedule", "layered")
     launch = decoder_cuda.launch_shape(
-        params, n, schedule, kw.get("codewords_per_block", 0), sm_count(dev))
+        params, n, schedule, kw.get("codewords_per_block", 0), sm_count(dev),
+        kw.get("algorithm", "min-sum"), kw.get("message_dtype", "float32"))
     nc = params.num_cols
     bound = kernel_bound(
         params, res, kw["iterations"],

@@ -36,7 +36,10 @@ from .op_rates import card_name_and_power_limit, time_ms
 ITERATIONS = 8
 ESN0_DB = 1.0
 PACKING_ZS = (2, 8, 20, 48, 96, 144, 208)
-PACKING_PS = (1, 2, 4, 8, 16)
+# codewords per block: up to 64 for the layered warp form (a block of up to
+# 16 warps, 32 // Z codewords a warp), up to 16 for flooding
+PACKING_PS = (1, 2, 4, 8, 16, 32, 64)
+FLOODING_PS = (1, 2, 4, 8, 16)
 PACKING_NS = (256, 2048, 4096, 16384)
 ROUTING_ZS = tuple(range(2, 17))
 ROUTING_NS = (256, 2048)
@@ -84,7 +87,11 @@ def noisy_llrs(params: LDPCParams, n: int, esn0_db: float, seed: int, device):
     return split_rate_matched_symbols(params, rx, modulation, noise_var)[:, 0]
 
 
-def fitting_ps(params: LDPCParams, schedule: str, ps=PACKING_PS):
+def fitting_ps(params: LDPCParams, schedule: str, ps=None):
+    """The codewords per block of ``ps`` (by default PACKING_PS, flooding
+    FLOODING_PS) that fit a block of this code."""
+    if ps is None:
+        ps = PACKING_PS if schedule == "layered" else FLOODING_PS
     return [P for P in ps if decoder_cuda._fits(schedule, params, P)]
 
 
@@ -92,21 +99,24 @@ def packing_table(device, zs=PACKING_ZS, ps=PACKING_PS, ns=PACKING_NS,
                   schedules=decoder_cuda.SCHEDULES, iterations=ITERATIONS,
                   esn0_db=ESN0_DB):
     """One record per (Z, schedule, n): microseconds per codeword for every P
-    that fits, the best P and the automatic choice."""
+    that fits and for the automatic choice, the best P and the automatic
+    choice."""
     rows = []
     kw = dict(DECODE_KW, iterations=iterations)
     for Z in zs:
         params = table_params(Z)
         llr = noisy_llrs(params, max(ns), esn0_db, 100 + Z, device)
         for schedule in schedules:
-            fit = fitting_ps(params, schedule, ps)
+            fit = fitting_ps(params, schedule, ps if schedule == "layered" else
+                             [P for P in ps if P in FLOODING_PS])
+            autos = {n: decoder_cuda.auto_codewords_per_block(params, n, schedule) for n in ns}
             occupancy = {P: decoder_cuda.blocks_per_sm(
-                params, schedule, codewords_per_block=P) for P in fit}
+                params, schedule, codewords_per_block=P) for P in {*fit, *autos.values()}}
             for n in ns:
                 x = llr[:n]
                 reps = max(3, min(30, 32768 // n))
                 us = {}
-                for P in fit:
+                for P in sorted({*fit, autos[n]}):
                     fn = lambda: decoder_cuda.decode(
                         params, x, schedule=schedule, codewords_per_block=P, **kw)
                     us[P] = time_ms(fn, reps) * 1e3 / n
@@ -117,7 +127,7 @@ def packing_table(device, zs=PACKING_ZS, ps=PACKING_PS, ns=PACKING_NS,
                     "passed": float(res.parity_ok.float().mean()),
                     "us_per_codeword": us, "blocks_per_sm": occupancy,
                     "best_P": min(us, key=us.get),
-                    "auto_P": decoder_cuda.auto_codewords_per_block(params, n, schedule),
+                    "auto_P": autos[n],
                     "mean_iterations": float(res.iterations.float().mean()),
                 })
     return rows

@@ -224,21 +224,24 @@ def test_kernel_tiles_cases():
 def test_kernel_tiles_names_the_rules_launch():
     """At config #1's code and its 2,048 codewords (LLRs that converge at
     once, so the plain decodes are quick): layered P in 1..16 all fit and
-    the rule picks P=1 at 32 threads; flooding 128 threads, layout 1 --
-    both as ``launch_shape`` says."""
+    the rule picks the warp form, P=16 at 512 threads; flooding 128
+    threads, layout 1 -- both as ``launch_shape`` says."""
     p = LDPCParams(**exp_kernel_tiles.CONFIG1_FIELDS)
     for P in exp_kernel_tiles.CASES[1][3]:
         assert decoder_cuda.resolve_codewords_per_block(p, 2048, "layered", P) == P
     _, llr = exp_alpha.cw_llrs(p, 2048, 6.0, 7, "cpu")
     rows = exp_kernel_tiles.case_rows("config #1", p, llr, dict(algorithm="min-sum", iterations=12),
                                       (), (), reps=1)
-    assert [r["name"] for r in rows] == ["config #1 layered P=1", "config #1 flooding threads=128"]
+    assert [r["name"] for r in rows] == ["config #1 layered P=16",
+                                         "config #1 flooding threads=128"]
     assert all(r["fits"] and r["equal_to_the_rule"] for r in rows)
     rules = [r for r in rows if r["rule_choice"]]
-    assert [r["name"] for r in rules] == ["config #1 layered P=1", "config #1 flooding threads=128"]
+    assert [r["name"] for r in rules] == ["config #1 layered P=16",
+                                          "config #1 flooding threads=128"]
     for r in rules:
         assert r["launch"] == decoder_cuda.launch_shape(p, 2048, r["schedule"], 0, 132)
-    assert rules[0]["launch"] == dict(codewords_per_block=1, threads=32, layout=0)
+    # the warp form: sixteen warps of one codeword, one block per SM
+    assert rules[0]["launch"] == dict(codewords_per_block=16, threads=512, layout=1)
     assert rules[1]["launch"] == dict(codewords_per_block=1, threads=128, layout=1)
     flagship = exp_alpha.flagship_params()
     assert decoder_cuda.launch_shape(flagship, 512, "flooding", 0, 132) == dict(

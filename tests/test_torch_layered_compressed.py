@@ -257,7 +257,11 @@ def test_scratch_shape_per_codeword():
     assert t_cuda.scratch_shape(p, 5, message_dtype="bfloat16")[0] == (5, p.num_rows, 2, 384)
     q = LDPCParams(**Z20)
     Eq = len(q.edges[0])
-    assert t_cuda.scratch_shape(q, 53, P=4) == ((14, q.num_rows, 3, 80), torch.int32)
+    # the min-sum family's Z=20 codewords take the warp form, their words on
+    # chip and one int of scratch, its codeword counter; nineteen (whose warps
+    # would not fit a block) the packed kernel's scratch
+    assert t_cuda.scratch_shape(q, 53, P=4) == ((1,), torch.int32)
+    assert t_cuda.scratch_shape(q, 53, P=19) == ((3, q.num_rows, 3, 380), torch.int32)
     assert t_cuda.scratch_shape(q, 53, "layered", "sum-product", P=4) == (
         (14, Eq, 80), torch.float32)
     # the packed flooding kernel keeps four Z=20 codewords' messages on chip;

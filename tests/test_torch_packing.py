@@ -76,55 +76,62 @@ def test_chain_config_carries_codewords_per_block():
 
 
 def test_automatic_rule_fits_every_lifting_size():
-    """For every TS38.212 lifting size and batch: P >= 1, the block within
-    its threads and shared memory, one codeword per block from the measured
-    cut up, and no packing that would leave the card short of blocks."""
+    """For every TS38.212 lifting size and batch: P >= 1 and the block within
+    its threads and shared memory.  The min-sum family at Z <= 32 takes the
+    warp form at every batch, as many warps per SM as the launch fills, up to
+    what an SM's shared memory holds; sum-product keeps the packed kernel's
+    measured cuts (no packing above 64 lanes per block, in a launch too small
+    to fill the card, or for full warps); flooding never packs."""
     seen = set()
     for Z in ALL_LIFTING_SIZES:
         params = small_z.table_params(Z)
         assert params.Z_c == Z
         E = len(params.edges[0])
-        for schedule in t_cuda.SCHEDULES:
+        for schedule, algorithm in (("layered", "min-sum"), ("layered", "sum-product"),
+                                    ("flooding", "min-sum")):
             for n in (1, 256, 2048, 8192, 16384, 65536):
-                P = t_cuda.auto_codewords_per_block(params, n, schedule)
-                seen.add(P)
-                assert P >= 1 and (P == 1 or P in t_cuda.PACK_CHOICES)
-                assert -(-(P * Z) // 32) * 32 <= t_cuda.MAX_BLOCK_THREADS
+                P = t_cuda.auto_codewords_per_block(params, n, schedule, algorithm)
+                seen.add((algorithm, P))
+                assert P >= 1 and t_cuda._fits(schedule, params, P)
                 smem = (t_cuda.flooding_shared_bytes(params, t_cuda.flooding_layout(params))
                         if schedule == "flooding" and P == 1 else
                         t_cuda.shared_bytes(schedule, Z, params.num_cols,
-                                            params.num_rows, E, P))
+                                            params.num_rows, E, P, algorithm=algorithm))
                 assert smem <= t_cuda.MAX_BLOCK_SHARED_BYTES == 232_448
-                # the measured cuts: no packing above 64 lanes per block, in
-                # a launch too small to fill the card, or for full warps
-                if 2 * Z > t_cuda.PACK_MAX_LANES or n < 2 * t_cuda.PACK_MIN_BLOCKS \
-                        or Z % 32 == 0:
+                if schedule == "flooding" or Z > t_cuda.WARP_FORM_MAX_Z:
                     assert P == 1
-                if P > 1:
-                    assert -(-n // P) >= t_cuda.PACK_MIN_BLOCKS
-                    assert P * Z <= t_cuda.PACK_MAX_LANES
-                assert t_cuda.resolve_codewords_per_block(params, n, schedule, 0) == P
+                elif algorithm == "min-sum":
+                    G = 32 // Z
+                    W = min(t_cuda.warp_form_warps(params), -(-n // (132 * G)))
+                    assert P == (G * W if G * W > 1 else 1)
+                    assert P == 1 or t_cuda.warp_form(params, P)
+                else:  # the packed kernel's cuts
+                    assert P == 1 or P in t_cuda.PACK_CHOICES
+                    if 2 * Z > t_cuda.PACK_MAX_LANES or n < 2 * t_cuda.PACK_MIN_BLOCKS \
+                            or Z % 32 == 0:
+                        assert P == 1
+                    if P > 1:
+                        assert -(-n // P) >= t_cuda.PACK_MIN_BLOCKS
+                        assert P * Z <= t_cuda.PACK_MAX_LANES
+                        assert not t_cuda.warp_form(params, P, algorithm)
+                assert t_cuda.resolve_codewords_per_block(params, n, schedule, 0,
+                                                          algorithm) == P
                 assert t_cuda.resolve_codewords_per_block(params, n, schedule, 1) == 1
         assert t_cuda.supports(params)
-    assert {1, 2, 4, 8, 16} <= seen
-    # the sweeps' default calls (256 to 2,048 codewords) are never packed
-    z20 = small_z.table_params(20)
-    z8, z2 = small_z.table_params(8), small_z.table_params(2)
-    for p in (z2, z8, z20):
-        for schedule in t_cuda.SCHEDULES:
-            assert [t_cuda.auto_codewords_per_block(p, n, schedule)
-                    for n in (256, 2048, 4096)] == [1, 1, 1]
-    # 20 lanes fill a warp no better two at a time, and four are over the cap
-    assert t_cuda.auto_codewords_per_block(z20, 65536, "layered") == 1
+    assert {("sum-product", P) for P in (1, 2, 4, 8, 16)} <= seen
+    z20, z8, z2 = (small_z.table_params(Z) for Z in (20, 8, 2))
+    # config #1's code: two warps a block at a sweep's smallest call, then
+    # one block of sixteen per SM (an SM's shared memory holds sixteen)
+    assert t_cuda.warp_form_warps(z20) == 16
+    assert [t_cuda.auto_codewords_per_block(z20, n, "layered")
+            for n in (132, 256, 2048, 65536)] == [1, 2, 16, 16]
     assert [t_cuda.auto_codewords_per_block(z8, n, "layered")
-            for n in (8192, 16384, 32768)] == [2, 4, 8]
-    # flooding never packs: its one-codeword kernel was as fast as the packed
-    # one at the rule's choices
+            for n in (256, 2048, 65536)] == [4, 16, 40]
+    assert [t_cuda.auto_codewords_per_block(z2, n, "layered", "sum-product")
+            for n in (2048, 16384, 65536)] == [1, 4, 16]
     for p in (z2, z8):
         assert [t_cuda.auto_codewords_per_block(p, n, "flooding")
                 for n in (8192, 16384, 65536)] == [1, 1, 1]
-    assert [t_cuda.auto_codewords_per_block(z2, n, "layered")
-            for n in (16384, 65536)] == [4, 16]
 
 
 def test_shared_bytes_formula():
@@ -139,11 +146,17 @@ def test_shared_bytes_formula():
     assert t_cuda.flooding_layout(p) == 3 and t_cuda.flooding_shared_bytes(p, 3) == 218_364
     assert t_cuda.shared_bytes("layered", 384, p.num_cols, p.num_rows, E) == 109_692
     assert not t_cuda._fits("flooding", p, 2) and t_cuda._fits("flooding", p, 1)
-    # P codewords: P sets of state and P flag words on top of the tables
+    # P codewords in the packed kernel (sum-product): P sets of state and P
+    # flag words on top of the tables; in the warp form (the min-sum family
+    # at Z <= 32) the tables, then per warp its totals and words
     q = small_z.table_params(20)
     one = t_cuda.shared_bytes("layered", 20, q.num_cols, q.num_rows, 197)
-    four = t_cuda.shared_bytes("layered", 20, q.num_cols, q.num_rows, 197, 4)
+    four = t_cuda.shared_bytes("layered", 20, q.num_cols, q.num_rows, 197, 4,
+                               algorithm="sum-product")
     assert four - one == 3 * q.num_cols * 20 * 4 + 16
+    warp = t_cuda.shared_bytes("layered", 20, q.num_cols, q.num_rows, 197, 4)
+    assert warp == 197 * 16 + q.num_rows * 8 + 4 * (
+        q.num_cols * 20 * 4 + q.num_rows * 3 * 20 * 4) == 60_448
     # packed flooding: P sets of totals and (on chip) of messages, four vote
     # words per codeword and two per block on top of both plans
     on_chip = t_cuda.shared_bytes("flooding", 20, q.num_cols, q.num_rows, 197, 4)
@@ -162,7 +175,7 @@ def test_ctypes_signatures_of_the_new_entries():
         for fn in ("decode", "shared_bytes", "blocks_per_sm"):
             assert _c_argument_kinds(src, f"{name}_{fn}") == list(t_cuda.ARGTYPES[name][fn])
         assert "codewords_per_block" in src and f"{name}_packed_kernel" in src
-    assert t_cuda.ARGTYPES["ldpc_layered"]["shared_bytes"] == [ctypes.c_int] * 5
+    assert t_cuda.ARGTYPES["ldpc_layered"]["shared_bytes"] == [ctypes.c_int] * 7
     assert t_cuda.ARGTYPES["ldpc_layered"]["blocks_per_sm"] == [ctypes.c_int] * 7
     with open(os.path.join(kernels_build.CSRC_DIR, "op_rates.cu")) as f:
         src = f.read()

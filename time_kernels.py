@@ -16,7 +16,10 @@ events:
 - V7-layered and V7-flooding: the packed kernels at config #1's launch,
   BG2 A=100 Z=20, 2,048 codewords at 2.0 dB, min-sum, 4 codewords per
   block, 12 and 50 iterations; V7-flooding-P1: the one-codeword flooding
-  kernel at V7-flooding's launch;
+  kernel at V7-flooding's launch; V1-z20: the one-codeword layered kernel
+  at V7-layered's launch; V7-layered-65536: the same code at 65,536
+  codewords and V7-layered-z8: BG2 A=32 Z=8 at 16,384 codewords, 2.0 dB,
+  both at the codewords per block of the tree's own rule;
 - V2: layered sum-product, BG2 A=2048 Z=208, 1,024 codewords at 2.0 dB, 8
   iterations;
 - V3-SP and V3-NMS: flooding sum-product and min-sum, BG2 A=3842 Z=208,
@@ -85,6 +88,10 @@ def main() -> int:
         ("V6-layered", cs.FLAGSHIP, 1.0, 1024, 20, dict(v1, message_dtype="bfloat16")),
         ("V7-layered", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 50,
          dict(v1, codewords_per_block=cs.CONFIG1_PACK)),
+        ("V1-z20", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 50,
+         dict(v1, codewords_per_block=1)),
+        ("V7-layered-65536", cs.CONFIG1_FIELDS, 2.0, 65536, 5, v1),
+        ("V7-layered-z8", dict(BG=2, A=32, G=64, Q_m=2), 2.0, 16384, 10, v1),
         ("V7-flooding", cs.CONFIG1_FIELDS, 2.0, cs.CONFIG1_BATCH, 20,
          dict(iterations=50, algorithm="min-sum", codewords_per_block=cs.CONFIG1_PACK,
               **flooding)),
@@ -108,6 +115,8 @@ def main() -> int:
             d = cs.codeword_llrs(params, d[:, 0])
         out[name] = [cs.time_ms(lambda: decoder_cuda.decode(params, d, **kw), reps=reps)
                      for _ in range(5)]
+        if name.startswith("V7-layered-"):  # the rule's choice
+            out[name + "-P"] = decoder_cuda.auto_codewords_per_block(params, n, "layered")
         del d
 
     # one snr_vs_a call at A=8000, as the sweep makes it
