@@ -143,10 +143,11 @@ CONFIG1_BATCH = 2048
 # a step of the config1_bg2_a100_b524288 benchmark cell: the launch its
 # kernels-line row V3-NMS-config1 is timed at and held to the plain version
 CONFIG1_CELL_BATCH = 524288
-# The automatic rule packs no call of either sweep (it needs 8,192 codewords
-# per launch), so the packed kernels run on this path by the explicit knob:
-# config #1 again with ``codewords_per_block=CONFIG1_PACK`` (80 lanes, three
-# warps per block), which must change no point.
+# The automatic rule packs no call of either sweep (both decode by flooding,
+# which never packs), so the packed kernels run on this path by the explicit
+# knob: config #1 again with ``codewords_per_block=CONFIG1_PACK`` (the packed
+# flooding kernel; a layered launch of it runs four warps of the warp form),
+# which must change no point.
 CONFIG1_PACK = 4
 SNR_VS_A_GOLDEN = "SNR_vs_A_BG1_R13_QPSK_50it_sumproduct.json"
 # Required Es/N0 is interpolated between two points of 100 block errors each
@@ -155,7 +156,7 @@ SNR_VS_A_GOLDEN = "SNR_vs_A_BG1_R13_QPSK_50it_sumproduct.json"
 # grid step of disagreement about where BLER crosses 1e-2 into less than
 # 0.1 dB.  0.15 dB holds both and is a sixth of the spread over A (0.58 dB).
 SNR_VS_A_TOLERANCE_DB = 0.15
-PACKED_ZS = (2, 3, 5, 8, 13, 20, 36, 48, 96, 144, 208)
+PACKED_ZS = (2, 3, 5, 8, 13, 20, 32, 36, 48, 96, 144, 208)
 # The one-codeword flooding kernel at the edges of its layouts (one block
 # per codeword up to BG2 Z=224 and BG1 Z=144, a cluster of 2 or 3 blocks
 # above), at Z = 2 and at Z = 384 of both base graphs: (base graph, Z,
@@ -218,8 +219,7 @@ def case_variant(variant, params, n, kw, sms):
         P = decoder_cuda.resolve_codewords_per_block(
             params, n, "layered", kw.get("codewords_per_block", 0),
             kw.get("algorithm", "min-sum"), kw.get("message_dtype", "float32"), sms)
-        warp = decoder_cuda.warp_form(params, P, kw.get("algorithm", "min-sum"),
-                                      kw.get("message_dtype", "float32"))
+        warp = decoder_cuda.warp_form(params, P, kw.get("algorithm", "min-sum"))
         return "V7-layered" if warp else variant
     shape = decoder_cuda.launch_shape(
         params, n, "flooding", kw.get("codewords_per_block", 0), sms)
@@ -562,8 +562,7 @@ def phase_packed_vs_plain(dev, tally):
                         torch.cuda.synchronize()
                         tally.add(f"V7-{schedule}",
                                   require_equal(got, one, dict(kw, Z=Z, P=P)))
-                        if schedule == "layered" and decoder_cuda.warp_form(
-                                params, P, rule, kw.get("message_dtype", "float32")):
+                        if schedule == "layered" and decoder_cuda.warp_form(params, P, rule):
                             # a warp's codewords from all three groups
                             got = decoder_cuda.decode(params, llr[shuffle], codewords_per_block=P,
                                                       **kw)
@@ -587,11 +586,58 @@ def phase_packed_vs_plain(dev, tally):
 
 def rule_ps(params):
     """The codewords per block (above 1) that the automatic rule picks for
-    this code's layered min-sum launches, at a sweep's call and at bulk."""
+    this code's layered min-sum launches, at a sweep's call and at bulk,
+    with float32 and with bfloat16 messages."""
     from ldpc_3gpp_tpu_torch.ops import decoder_cuda
 
-    return {P for n in (256, 2048, 16384, 65536)
-            for P in (decoder_cuda.auto_codewords_per_block(params, n, "layered"),) if P > 1}
+    return {P for n in (256, 2048, 16384, 65536) for dtype in ("float32", "bfloat16")
+            for P in (decoder_cuda.auto_codewords_per_block(params, n, "layered", "min-sum",
+                                                            dtype),) if P > 1}
+
+
+def warp_form_rounds(dev, tally):
+    """The warp kernel at a sweep's call and above against the plain
+    version, tolerance 0: 4,096 codewords of BG2 Z=32 with bfloat16 messages
+    at the automatic rule's P (its widest block: 12 warps, 384 lanes),
+    min-sum with early termination ('d' in, 'sys' out); and config #1's code
+    at CONFIG1_PACK
+    codewords per block, bfloat16 offset-min-sum run to budget ('cw' in and
+    out), at 4,096 codewords, above what the SMs hold at once (2,112 on 132
+    SMs), so that persistent warps take codewords a second time (their
+    words zeroed, their votes reset).  Returns {case: launch shape}."""
+    from ldpc_3gpp_tpu_torch.ops import decoder_cuda
+    from ldpc_3gpp_tpu_torch.spec.params import LDPCParams
+    from ldpc_3gpp_tpu_torch.tools.small_z import noisy_llrs, params_for_z
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    z32, config1 = params_for_z(2, 32), LDPCParams(**CONFIG1_FIELDS)
+    for name, params, llr, kw in (
+        ("bg2_z32_bf16_rule", z32, noisy_llrs(z32, 2 * CONFIG1_BATCH, 1.0, 60, dev),
+         dict(channel_format="d", output_format="sys", algorithm="min-sum",
+              message_dtype="bfloat16", iterations=ITERATIONS)),
+        ("config1_bf16_oms_budget", config1,
+         codeword_llrs(config1, noisy_llrs(config1, 2 * CONFIG1_BATCH, 1.5, 61, dev)),
+         dict(algorithm="offset-min-sum", message_dtype="bfloat16", iterations=ITERATIONS,
+              early_termination=False, codewords_per_block=CONFIG1_PACK)),
+    ):
+        n = llr.shape[0]
+        shape = decoder_cuda.launch_shape(params, n, "layered", kw.get("codewords_per_block", 0),
+                                          sms, kw["algorithm"], kw["message_dtype"])
+        P = shape["codewords_per_block"]
+        per_sm = decoder_cuda.blocks_per_sm(params, "layered", kw["algorithm"],
+                                            kw["message_dtype"], P, n)
+        at_once = sms * per_sm * P
+        if not decoder_cuda.warp_form(params, P, kw["algorithm"]) or P * params.Z_c > 384:
+            raise AssertionError(f"{name}: not a warp-form launch within 384 lanes: {shape}")
+        if "codewords_per_block" in kw and n <= at_once:
+            raise AssertionError(f"{name}: {n} codewords take no second round ({at_once})")
+        got = decoder_cuda.decode(params, llr, **kw)
+        torch.cuda.synchronize()
+        tally.add("V7-layered", require_equal(got, decoder_cuda.decode_plain(params, llr, **kw),
+                                              dict(kw, case=name)))
+        out[name] = dict(shape, codewords=n, blocks_per_sm=per_sm, codewords_at_once=at_once)
+    return out
 
 
 def warp_form_ties(params, d, tally):
@@ -2784,11 +2830,13 @@ def main() -> int:
           "config1_launch": config1, "tie_cases_llrs_at_smallest_level_by_Z": ties})
 
     compared, mixes, plain_cases = phase_packed_vs_plain(dev, tally)
+    rounds = warp_form_rounds(dev, tally)
     packed_flooding = phase_packed_flooding(dev, tally)
     emit({"phase": "packed_vs_plain", "seconds": watch.lap(),
           "cases": tally.cases["V7-layered"] + tally.cases["V7-flooding"],
           "max_abs_diff": max(tally.worst["V7-layered"], tally.worst["V7-flooding"]),
-          "tolerance": 0, "codewords": 53, "plain_version_cases": plain_cases,
+          "tolerance": 0, "codewords": 53, "plain_version_cases": plain_cases + len(rounds),
+          "warp_form_rounds": rounds,
           "codewords_per_block_by_Z": compared,
           "sweeps_high_noise_kinds": mixes,
           "packed_flooding_shapes": packed_flooding})

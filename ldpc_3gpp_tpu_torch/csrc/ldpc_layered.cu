@@ -513,11 +513,11 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
 // ---- P codewords per block at Z <= 32: the warp form ---------------------
 //
 // ldpc_layered_warp_kernel replaces ldpc_layered_packed_kernel for the min-sum
-// family at Z <= 32 (the packed kernel keeps sum-product, Z > 32 and a P
-// whose warps or state do not fit a block).  Taken apart on an NVIDIA H100
-// 80GB HBM3 at 700 W at config #1's code (BG2 Z=20; tools/layered_probe.py's
-// `packed_block` family, PERF.md section 6), the packed kernel was bound by
-// the instructions of its row (PR 19's row alone took a fifth off) and by its
+// family at Z <= 32 (the packed kernel keeps sum-product and Z > 32).  Taken
+// apart on an NVIDIA H100 80GB HBM3 at 700 W at config #1's code (BG2 Z=20;
+// tools/layered_probe.py's `packed_block` family, PERF.md section 6), the
+// packed kernel was bound by the instructions of its row (the one-codeword
+// kernel's row alone took a fifth off) and by its
 // words' traffic (a quarter); its block-wide barriers and its stragglers cost
 // little, and its words on chip lost because they cut the blocks per SM.  At
 // 2,048 codewords an SM holds about 16 codewords in all, and a lone warp's row
@@ -525,9 +525,9 @@ ldpc_layered_packed_kernel(const float* __restrict__ llr,
 // scheduler), so a launch is only as fast as the codewords its SMs hold at
 // once, and a second round of a few codewords doubles its time.
 // Here a warp owns its codewords outright: G = min(P, 32 / Z) of them, lanes
-// k*Z .. k*Z + Z - 1 for codeword k; a block is ceil(P / G) such warps (up
-// to WARP_FORM_MAX_THREADS, one block per SM at Z=20: 16 codewords) that
-// share one edge table and never wait for each other.  The warps are
+// k*Z .. k*Z + Z - 1 for codeword k; a block is ceil(P / G) such warps, at
+// most what a block holds (block_codewords: one block per SM at Z=20, 16
+// codewords), that share one edge table and never wait for each other.  The warps are
 // persistent: the grid is what the SMs hold, and each warp takes its next
 // codewords from a counter in global memory (atomicAdd; the order changes no
 // result) until none are left, so no SM idles behind a straggler.  A warp's
@@ -565,13 +565,25 @@ __host__ __device__ inline size_t warp_state_bytes(int Z, int nc, int nr, int wo
 static size_t warp_shared_bytes(int Z, int nc, int nr, int E, int P, int words) {
   return warp_table_bytes(nr, E) + (size_t)warp_count(Z, P) * warp_state_bytes(Z, nc, nr, words, P);
 }
-// The warp form: the min-sum family, P > 1 codewords at Z <= 32, where the
-// block's warps and their state fit a block.
-static bool warp_form(int rule, int bf16_messages, int Z, int nc, int nr, int E, int P) {
-  if (rule == RULE_SUM_PRODUCT || P < 2 || Z > 32) return false;
+// The warp form: the min-sum family, P > 1 codewords at Z <= 32.
+static bool warp_form(int rule, int Z, int P) {
+  return rule != RULE_SUM_PRODUCT && P > 1 && Z <= 32;
+}
+// The most warps of G codewords that one warp-form block holds: its threads,
+// MAX_THREADS live lanes and the shared memory of the warps' state.
+static int warp_max_warps(int Z, int nc, int nr, int E, int G, int words) {
+  const size_t room = (WARP_FORM_SHARED_LIMIT - warp_table_bytes(nr, E)) /
+                      warp_state_bytes(Z, nc, nr, words, G);
+  return min(min(WARP_FORM_MAX_THREADS / 32, MAX_THREADS / (G * Z)), (int)room);
+}
+// The codewords that one block holds for P asked for: in the warp form at
+// most what its warps hold (its warps are persistent, so P only sets how many
+// share a block), else P.
+static int block_codewords(int rule, int bf16_messages, int Z, int nc, int nr, int E, int P) {
+  if (!warp_form(rule, Z, P)) return P;
+  const int G = warp_codewords(Z, P);
   const int N = bf16_messages ? RowWords<__nv_bfloat16>::N : RowWords<float>::N;
-  return warp_count(Z, P) * 32 <= WARP_FORM_MAX_THREADS &&
-         warp_shared_bytes(Z, nc, nr, E, P, N) <= WARP_FORM_SHARED_LIMIT;
+  return min(P, G * warp_max_warps(Z, nc, nr, E, G, N));
 }
 
 // Lane z of every column of one codeword's totals from its channel LLRs into
@@ -747,19 +759,20 @@ extern "C" int ldpc_layered_max_degree() { return MAX_DEG; }
 extern "C" int ldpc_layered_max_z() { return MAX_THREADS; }
 extern "C" int ldpc_layered_max_shared_bytes() { return max_shared_bytes_optin(); }
 
-// Threads of a block of P codewords: the warp form's whole warps, else P*Z
-// lanes rounded up to whole warps.
-static int block_threads(int rule, int bf16_messages, int Z, int nc, int nr, int E, int P) {
-  return warp_form(rule, bf16_messages, Z, nc, nr, E, P) ? warp_count(Z, P) * 32
-                                                         : (P * Z + 31) / 32 * 32;
+// Threads of a block of P codewords (block_codewords): the warp form's whole
+// warps, else P*Z lanes rounded up to whole warps.
+static int block_threads(int rule, int Z, int P) {
+  return warp_form(rule, Z, P) ? warp_count(Z, P) * 32 : (P * Z + 31) / 32 * 32;
 }
 
-// Dynamic shared memory of one block of P codewords.  The warp form: the edge
-// table and row records, then each warp's totals and words.  Else P sets of
-// totals, edge table, row offsets and, for P > 1, a flag word per codeword.
+// Dynamic shared memory of one block for P codewords asked for
+// (block_codewords).  The warp form: the edge table and row records, then each
+// warp's totals and words.  Else P sets of totals, edge table, row offsets
+// and, for P > 1, a flag word per codeword.
 extern "C" int ldpc_layered_shared_bytes(int rule, int bf16_messages, int Z, int nc, int nr,
                                          int E, int P) {
-  if (warp_form(rule, bf16_messages, Z, nc, nr, E, P))
+  P = block_codewords(rule, bf16_messages, Z, nc, nr, E, P);
+  if (warp_form(rule, Z, P))
     return (int)warp_shared_bytes(Z, nc, nr, E, P, bf16_messages ? RowWords<__nv_bfloat16>::N
                                                                    : RowWords<float>::N);
   return (int)(align16((size_t)P * nc * Z * 4) + (size_t)E * 16 +
@@ -767,9 +780,8 @@ extern "C" int ldpc_layered_shared_bytes(int rule, int bf16_messages, int Z, int
 }
 
 template <bool SUM_PRODUCT, typename MSG>
-static const void* kernel_of(int Z, int nc, int nr, int E, int P, bool offset_rule) {
-  if (warp_form(SUM_PRODUCT ? RULE_SUM_PRODUCT : RULE_MIN_SUM, sizeof(MSG) == 2, Z, nc, nr, E,
-                P))
+static const void* kernel_of(int Z, int P, bool offset_rule) {
+  if (warp_form(SUM_PRODUCT ? RULE_SUM_PRODUCT : RULE_MIN_SUM, Z, P))
     return offset_rule ? (const void*)ldpc_layered_warp_kernel<MSG, true>
                        : (const void*)ldpc_layered_warp_kernel<MSG, false>;
   if (P > 1) return (const void*)ldpc_layered_packed_kernel<SUM_PRODUCT, MSG>;
@@ -800,16 +812,16 @@ static int launch(const void* llr, void* bits, void* ok, void* iters, void* scra
                   const DecodeArgs& a, cudaStream_t stream) {
   const int rule = SUM_PRODUCT ? RULE_SUM_PRODUCT : a.offset_rule;
   const int bf16 = sizeof(MSG) == 2;
-  const int threads = block_threads(rule, bf16, a.Z, a.nc, a.nr, a.E, P);
+  const int threads = block_threads(rule, a.Z, P);
   const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, a.Z, a.nc, a.nr, a.E, P);
-  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(a.Z, a.nc, a.nr, a.E, P, a.offset_rule);
+  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(a.Z, P, a.offset_rule);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const float* in = (const float*)llr;
   const int4* e = (const int4*)edges;
   const int* rs = (const int*)row_start;
-  if (warp_form(rule, bf16, a.Z, a.nc, a.nr, a.E, P)) {
+  if (warp_form(rule, a.Z, P)) {
     const int blocks = warp_form_blocks(kernel, threads, smem_bytes, ncw, P);
     if (blocks < 0) return -blocks;
     err = cudaMemsetAsync(scratch, 0, sizeof(int), stream);  // the codeword counter
@@ -842,13 +854,12 @@ static int occupancy(int rule, int Z, int nc, int nr, int E, int P) {
   int n = 0;
   const int bf16 = sizeof(MSG) == 2;
   const int smem_bytes = ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P);
-  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(Z, nc, nr, E, P,
-                                                   rule == RULE_OFFSET_MIN_SUM);
+  const void* kernel = kernel_of<SUM_PRODUCT, MSG>(Z, P, rule == RULE_OFFSET_MIN_SUM);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kernel, block_threads(rule, bf16, Z, nc, nr, E, P), smem_bytes);
+        &n, kernel, block_threads(rule, Z, P), smem_bytes);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -858,8 +869,9 @@ static int occupancy(int rule, int Z, int nc, int nr, int E, int P) {
 extern "C" int ldpc_layered_blocks_per_sm(int rule, int bf16_messages,
                                           int codewords_per_block, int Z, int nc,
                                           int nr, int E) {
-  const int P = codewords_per_block;
+  int P = codewords_per_block;
   if (Z < 1 || P < 1 || P * Z > MAX_THREADS) return -(int)cudaErrorInvalidValue;
+  P = block_codewords(rule, bf16_messages, Z, nc, nr, E, P);
   if (rule == RULE_SUM_PRODUCT) return occupancy<true, float>(rule, Z, nc, nr, E, P);
   if (bf16_messages) return occupancy<false, __nv_bfloat16>(rule, Z, nc, nr, E, P);
   return occupancy<false, float>(rule, Z, nc, nr, E, P);
@@ -872,7 +884,7 @@ extern "C" int ldpc_layered_blocks_per_sm(int rule, int bf16_messages,
 extern "C" int ldpc_layered_scratch_bytes(int rule, int bf16_messages, int Z, int nc,
                                           int nr, int E, int P) {
   if (rule == RULE_SUM_PRODUCT) return E * P * Z * 4;
-  if (warp_form(rule, bf16_messages, Z, nc, nr, E, P)) return 0;
+  if (warp_form(rule, Z, P)) return 0;
   const int N = bf16_messages ? RowWords<__nv_bfloat16>::N : RowWords<float>::N;
   return nr * N * P * Z * 4;
 }
@@ -882,7 +894,8 @@ extern "C" int ldpc_layered_scratch_bytes(int rule, int bf16_messages, int Z, in
 // the message type (min-sum family only).  `codewords_per_block` P = 1 runs
 // one block per codeword, P > 1 runs ceil(ncw / P) blocks of the packed
 // kernel, or (the warp form) as many blocks of the warp kernel as the SMs
-// hold, at most ceil(ncw / P).  `scratch` holds ceil(ncw / P) blocks' shares
+// hold, at most ceil(ncw / P), each of at most P codewords (block_codewords).
+// `scratch` holds ceil(ncw / P) blocks' shares
 // of ldpc_layered_scratch_bytes each, or (the warp form) one int, which the
 // launch sets to 0 on `stream`.  Does not synchronise and allocates nothing.
 // Returns cudaGetLastError().
@@ -893,11 +906,12 @@ extern "C" int ldpc_layered_decode(
     int early_termination, int rule, int bf16_messages,
     int codewords_per_block, float alpha, float beta, float alpha0, int n0,
     void* stream) {
-  const int P = codewords_per_block;
+  int P = codewords_per_block;
   if (Z < 1 || Z > MAX_THREADS || ncw < 1) return (int)cudaErrorInvalidValue;
   if (rule < RULE_MIN_SUM || rule > RULE_SUM_PRODUCT) return (int)cudaErrorInvalidValue;
   if (P < 1 || P * Z > MAX_THREADS) return (int)cudaErrorInvalidValue;
   if (rule == RULE_SUM_PRODUCT && bf16_messages) return (int)cudaErrorInvalidValue;
+  P = block_codewords(rule, bf16_messages, Z, nc, nr, E, P);
   DecodeArgs a;
   a.Z = Z; a.nc = nc; a.nr = nr; a.E = E; a.out_cols = out_cols;
   a.d_input = d_input; a.fill_lo = fill_lo; a.fill_hi = fill_hi;

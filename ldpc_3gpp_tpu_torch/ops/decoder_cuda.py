@@ -155,10 +155,11 @@ def _align16(n: int) -> int:
 
 
 # The warp form of the layered min-sum family (``ldpc_layered_warp_kernel``):
-# P > 1 codewords per block at Z <= WARP_FORM_MAX_Z, each warp holding
-# ``warp_codewords`` of them outright with their totals and words in shared
-# memory, where the block's warps (at most WARP_FORM_MAX_THREADS threads) and
-# their state fit a block (``warp_form``); else the packed kernel.
+# P > 1 codewords per block at Z <= WARP_FORM_MAX_Z (``warp_form``), each
+# warp holding ``warp_codewords`` of them outright with their totals and
+# words in shared memory, a block at most what its threads
+# (WARP_FORM_MAX_THREADS), its live lanes and its shared memory hold
+# (``block_codewords``).  Sum-product and Z > 32 take the packed kernel.
 WARP_FORM_MAX_Z = 32
 WARP_FORM_MAX_THREADS = 512
 
@@ -182,31 +183,53 @@ def warp_shared_bytes(Z: int, nc: int, nr: int, E: int, P: int, words: int) -> i
             + warp_count(Z, P) * (_align16(4 * nc * lanes) + 4 * nr * words * lanes))
 
 
-def _warp_form(Z: int, nc: int, nr: int, E: int, P: int, algorithm: str,
-               message_dtype: str) -> bool:
-    if algorithm == "sum-product" or P < 2 or Z > WARP_FORM_MAX_Z:
-        return False
-    words = COMPRESSED_WORDS[resolve_message_dtype(message_dtype, algorithm)]
-    return (warp_count(Z, P) * 32 <= WARP_FORM_MAX_THREADS
-            and warp_shared_bytes(Z, nc, nr, E, P, words) <= MAX_BLOCK_SHARED_BYTES)
+def _warp_form(Z: int, P: int, algorithm: str) -> bool:
+    return algorithm != "sum-product" and P > 1 and Z <= WARP_FORM_MAX_Z
 
 
-def warp_form(params: LDPCParams, P: int, algorithm: str = "min-sum",
-              message_dtype: str = "float32") -> bool:
+def warp_form(params: LDPCParams, P: int, algorithm: str = "min-sum") -> bool:
     """Whether a layered launch of ``P`` codewords per block runs the warp
-    kernel: the min-sum family, P > 1, Z <= 32, the block's whole warps
-    within WARP_FORM_MAX_THREADS and their totals and words within a block's
-    shared memory (else the packed kernel)."""
-    return _warp_form(params.Z_c, params.num_cols, params.num_rows, len(params.edges[0]), P,
-                      algorithm, message_dtype)
+    kernel: the min-sum family, P > 1, Z <= 32 (else the packed kernel, or
+    the one-codeword kernels at P = 1)."""
+    return _warp_form(params.Z_c, P, algorithm)
+
+
+def warp_max_warps(Z: int, nc: int, nr: int, E: int, G: int, words: int) -> int:
+    """The most warps of ``G`` codewords that one warp-form block holds:
+    WARP_FORM_MAX_THREADS threads, MAX_BLOCK_THREADS live lanes and a
+    block's shared memory over one warp's totals and words."""
+    table = _align16(16 * E + 8 * nr)
+    per_warp = warp_shared_bytes(Z, nc, nr, E, G, words) - table
+    return min(WARP_FORM_MAX_THREADS // 32, MAX_BLOCK_THREADS // (G * Z),
+               (MAX_BLOCK_SHARED_BYTES - table) // per_warp)
+
+
+def _block_codewords(Z: int, nc: int, nr: int, E: int, P: int, algorithm: str,
+                     message_dtype: str) -> int:
+    if not _warp_form(Z, P, algorithm):
+        return P
+    G = warp_codewords(Z, P)
+    words = COMPRESSED_WORDS[resolve_message_dtype(message_dtype, algorithm)]
+    return min(P, G * warp_max_warps(Z, nc, nr, E, G, words))
+
+
+def block_codewords(params: LDPCParams, P: int, algorithm: str = "min-sum",
+                    message_dtype: str = "float32") -> int:
+    """The codewords that one block holds when ``P`` are asked for (the
+    source's ``block_codewords``): in the warp form at most what its warps
+    hold (``warp_max_warps``; the warps are persistent, so P only sets how
+    many share a block), else P."""
+    return _block_codewords(params.Z_c, params.num_cols, params.num_rows,
+                            len(params.edges[0]), P, algorithm, message_dtype)
 
 
 def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1,
                  on_chip: bool = True, algorithm: str = "min-sum",
                  message_dtype: str = "float32") -> int:
-    """Dynamic shared memory of one block of ``P`` codewords: the formula of
-    ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered, the warp form
-    (``warp_form``): ``warp_shared_bytes``.  Else layered: totals per
+    """Dynamic shared memory of one block for ``P`` codewords asked for: the
+    formula of ``ldpc_*_shared_bytes`` in the CUDA sources.  Layered, the
+    warp form (``warp_form``): ``warp_shared_bytes`` of the codewords the
+    block holds (``block_codewords``).  Else layered: totals per
     codeword; edge table; row offsets; P > 1: a flag word per codeword.
     Flooding, one codeword per block: FLOODING_SHARED_BYTES, the totals, the
     E*Z messages and, where that still fits a block, the channel LLRs
@@ -222,8 +245,9 @@ def shared_bytes(schedule: str, Z: int, nc: int, nr: int, E: int, P: int = 1,
             return _one_block_bytes(Z, nc, nr, E, one_block_slots(Z, nc, nr, E))
         return (_align16(P * (nc + (E if on_chip else 0)) * Z * 4) + E * 16
                 + (nr + nc + 2) * 4 + P * 16 + 8)
-    if _warp_form(Z, nc, nr, E, P, algorithm, message_dtype):
-        return warp_shared_bytes(Z, nc, nr, E, P,
+    if _warp_form(Z, P, algorithm):
+        return warp_shared_bytes(Z, nc, nr, E,
+                                 _block_codewords(Z, nc, nr, E, P, algorithm, message_dtype),
                                  COMPRESSED_WORDS[resolve_message_dtype(message_dtype, algorithm)])
     return _align16(P * nc * Z * 4) + E * 16 + (nr + 1) * 4 + (P * 4 if P > 1 else 0)
 
@@ -277,7 +301,7 @@ def scratch_shape(params: LDPCParams, n: int, schedule: str = "layered",
         if P == 1 or packed_flooding_layout(params, P) == LAYOUT_ON_CHIP:
             return None
         return (blocks, P, E, Z), torch.float32
-    if warp_form(params, P, algorithm, message_dtype):
+    if warp_form(params, P, algorithm):
         return (1,), torch.int32
     if algorithm != "sum-product":
         return (blocks, params.num_rows, COMPRESSED_WORDS[dtype], P * Z), torch.int32
@@ -472,38 +496,48 @@ def flooding_threads(params: LDPCParams, n: int, layout=None, sms: int = 132,
     return max(32, min(threads, -(-(P * params.num_cols * params.Z_c) // 32) * 32))
 
 
-def _fits(schedule: str, params: LDPCParams, P: int) -> bool:
+def _fits(schedule: str, params: LDPCParams, P: int, algorithm: str = "min-sum",
+          message_dtype: str = "float32") -> bool:
     """Whether P codewords per block fit: at most MAX_BLOCK_THREADS lanes in
-    whole warps, and the shared memory of the smallest form (packed
-    flooding: messages in the scratch; layered: the packed kernel, which
-    takes every launch of the min-sum family that the warp form does not)."""
+    whole warps, and the shared memory of the launch's form (packed
+    flooding: its smallest, messages in the scratch; layered: the warp form,
+    which holds what fits of any P, or the packed kernel)."""
     if schedule == "flooding" and P == 1:
         return params.Z_c <= MAX_BLOCK_THREADS  # a cluster holds what a block does not
     E = len(params.edges[0])
     return (
         -(-(P * params.Z_c) // 32) * 32 <= MAX_BLOCK_THREADS
         and shared_bytes(schedule, params.Z_c, params.num_cols, params.num_rows, E, P,
-                         on_chip=False, algorithm="sum-product") <= MAX_BLOCK_SHARED_BYTES
+                         on_chip=False, algorithm=algorithm,
+                         message_dtype=message_dtype) <= MAX_BLOCK_SHARED_BYTES
     )
 
 
 # The automatic choice of codewords per block, from tools/small_z.py's
-# packing table of the warp form (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+# packing table of the warp form, taken twice (NVIDIA H100 80GB HBM3, 700 W;
+# min-sum, float32 and bfloat16 messages, Z = 2, 5, 8, 13, 20, 26, 32, 256 to
+# 16,384 codewords, 8 sweeps and a 50-sweep budget; PERF.md §6):
 # - The min-sum family at Z <= 32 takes the warp form with as many warps per
 #   SM as the launch fills: W = min(``warp_form_warps``, ceil(n / (sms * G)))
-#   warps of G = 32 // Z codewords, P = G * W (else one codeword per block
-#   where P would be 1).  In the table that rule was within 12 % of the best
-#   P at every Z <= 20 and batch (256 to 16,384 codewords, both budgets)
-#   and ahead of one codeword per block everywhere but Z=8 at 256 codewords
-#   (2 % behind, where both run a warp or two per SM): at Z=20 by 21 % at
-#   2,048 codewords and 16 % at 16,384, at Z=8 by 3.1 times and at Z=2 by 7.7
-#   times at 16,384.
-# - Sum-product keeps the packed kernel and its rule (PR 3's cuts): the
-#   largest of PACK_CHOICES that keeps P*Z within PACK_MAX_LANES, fills the
-#   block's warps better than one codeword does and leaves PACK_MIN_BLOCKS
-#   blocks.  PACK_MIN_BLOCKS: with 1,024 blocks left, launches lost up to
-#   43 % under early termination with a 50-iteration budget; with 4,096 the
-#   worst measured loss was 7 % (min-sum, the packed kernel).
+#   warps of G = 32 // Z codewords, P = G * W, but for one codeword per block
+#   where P would be 1, at Z > 2 where the launch has at most two codewords
+#   per SM (n <= 2 * sms: one codeword per block was ahead in 20 of the 24
+#   rows at 256 codewords and Z >= 5, by up to 67 %; at Z=2 the warp form
+#   was ahead by 9-19 %), and at Z=32 below two rounds of the warp form's
+#   blocks (n < 2 * sms * W: one codeword per block already fills its warps
+#   there; at 2,048 codewords the warp form was 8 % ahead to 30 % behind).
+#   Everywhere else in both tables the rule was ahead of one codeword per
+#   block in 146 of 148 rows: at 16,384 codewords by 7.3-9.8 times at Z=2,
+#   3.1-3.4 times at Z=8, 16-18 % at Z=20, 11-14 % at Z=32.  The two rows
+#   behind, each seen once: Z=8 at 2,048 codewords (45 %; 13 % ahead in the
+#   other table) and Z=32 with bfloat16 messages at 4,096, 50 sweeps at
+#   3.0 dB (26 %; 19 % ahead in the other).
+# - Sum-product keeps the packed kernel and the rule it had: the largest of
+#   PACK_CHOICES that keeps P*Z within PACK_MAX_LANES, fills the block's
+#   warps better than one codeword does and leaves PACK_MIN_BLOCKS blocks.
+#   PACK_MIN_BLOCKS: with 1,024 blocks left, launches lost up to 43 % under
+#   early termination with a 50-iteration budget; with 4,096 the worst
+#   measured loss was 7 % (min-sum, the packed kernel).
 # Flooding never packs: its one-codeword kernel deals a codeword's items over
 # the whole block, and in the small-Z tables it beat every P at every Z and
 # batch (PERF.md §6).
@@ -519,13 +553,11 @@ def _warp_fill(lanes: int) -> float:
 
 def warp_form_warps(params: LDPCParams, message_dtype: str = "float32") -> int:
     """The most warps of the warp form (32 // Z codewords each) that one
-    block, and so one SM, holds: a block's shared memory over one warp's
-    totals and words, at most WARP_FORM_MAX_THREADS / 32."""
-    Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    block, and so one SM, holds (``warp_max_warps``)."""
+    Z = params.Z_c
     words = COMPRESSED_WORDS[resolve_message_dtype(message_dtype, "min-sum")]
-    table = _align16(16 * E + 8 * nr)
-    per_warp = warp_shared_bytes(Z, nc, nr, E, 32 // Z, words) - table
-    return min(WARP_FORM_MAX_THREADS // 32, (MAX_BLOCK_SHARED_BYTES - table) // per_warp)
+    return warp_max_warps(Z, params.num_cols, params.num_rows, len(params.edges[0]), 32 // Z,
+                          words)
 
 
 def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str,
@@ -533,7 +565,8 @@ def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str,
                              sms: int = 132) -> int:
     """Codewords per block for ``n`` codewords of this code on ``sms`` SMs
     (see above): 1 for flooding; the min-sum family at Z <= 32 the warp form
-    that fills the SMs; sum-product the packed kernel's cuts; else 1."""
+    that fills the SMs, but for the smallest launches and Z=32 below two
+    rounds; sum-product the packed kernel's cuts; else 1."""
     Z = params.Z_c
     if schedule == "flooding":
         return 1
@@ -541,14 +574,16 @@ def auto_codewords_per_block(params: LDPCParams, n: int, schedule: str,
         best = 1
         for P in PACK_CHOICES:
             if (P * Z <= PACK_MAX_LANES and _warp_fill(P * Z) > _warp_fill(Z)
-                    and -(-n // P) >= PACK_MIN_BLOCKS and _fits(schedule, params, P)):
+                    and -(-n // P) >= PACK_MIN_BLOCKS
+                    and _fits(schedule, params, P, algorithm)):
                 best = P
         return best
-    if Z > WARP_FORM_MAX_Z:
+    W = warp_form_warps(params, message_dtype) if Z <= WARP_FORM_MAX_Z else 0
+    if W == 0 or (Z > 2 and n <= 2 * sms) or (Z == 32 and n < 2 * sms * W):
         return 1
     G = 32 // Z
-    P = G * min(warp_form_warps(params, message_dtype), max(1, -(-n // (sms * G))))
-    return P if P > 1 and warp_form(params, P, algorithm, message_dtype) else 1
+    P = G * min(W, max(1, -(-n // (sms * G))))
+    return P if P > 1 else 1
 
 
 def resolve_codewords_per_block(params: LDPCParams, n: int, schedule: str,
@@ -559,7 +594,7 @@ def resolve_codewords_per_block(params: LDPCParams, n: int, schedule: str,
     P = int(codewords_per_block)
     if P == 0:
         return auto_codewords_per_block(params, n, schedule, algorithm, message_dtype, sms)
-    if P < 1 or not _fits(schedule, params, P):
+    if P < 1 or not _fits(schedule, params, P, algorithm, message_dtype):
         raise ValueError(
             f"codewords_per_block={P} does not fit one block at Z={params.Z_c} "
             f"({schedule}): at most {MAX_BLOCK_THREADS} threads and "
@@ -695,16 +730,6 @@ def _block_slots(params: LDPCParams, layout: int, P: int = 1) -> int:
     return one_block_slots(params.Z_c, params.num_cols, params.num_rows, len(params.edges[0]))
 
 
-def _any_layered_scratch(params: LDPCParams, n: int, algorithm: str, dtype, P: int):
-    """A layered launch's scratch for a build of other sources (``decode``'s
-    ``_lib``: a probe's variant, another tree's kernel): the packed kernel's
-    wherever P > 1, which also holds the warp form's counter."""
-    if algorithm == "sum-product" or P == 1:
-        return scratch_shape(params, n, "layered", algorithm, str(dtype).split(".")[-1], P)
-    return ((-(-n // P), params.num_rows, COMPRESSED_WORDS[dtype], P * params.Z_c),
-            torch.int32)
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -713,8 +738,9 @@ def _sm_count(device: torch.device) -> int:
 def launch_shape(params: LDPCParams, n: int, schedule: str,
                  codewords_per_block: int = 0, sms: int = 132, algorithm: str = "min-sum",
                  message_dtype: str = "float32") -> dict:
-    """How ``decode`` launches ``n`` codewords: codewords per block, threads
-    per block and the layout of the messages (flooding: ``flooding_layout``,
+    """How ``decode`` launches ``n`` codewords: codewords per block (what a
+    block holds of those asked for, ``block_codewords``), threads per block
+    and the layout of the messages (flooding: ``flooding_layout``,
     ``packed_flooding_layout``; layered: 1 for the warp form, its messages on
     chip, else 0, the scratch)."""
     P = resolve_codewords_per_block(params, n, schedule, codewords_per_block, algorithm,
@@ -723,7 +749,8 @@ def launch_shape(params: LDPCParams, n: int, schedule: str,
         layout = (flooding_layout(params) if P == 1
                   else packed_flooding_layout(params, P))
         threads = flooding_threads(params, n, layout, sms, P)
-    elif warp_form(params, P, algorithm, message_dtype):
+    elif warp_form(params, P, algorithm):
+        P = block_codewords(params, P, algorithm, message_dtype)
         layout = LAYOUT_ON_CHIP
         threads = warp_count(params.Z_c, P) * 32
     else:
@@ -931,19 +958,22 @@ def decode(
 
     codewords_per_block: 0 (default) packs several small-Z codewords into
     one block by ``auto_codewords_per_block`` (from Z, the batch and the
-    rule: the min-sum family at Z <= 32 takes the warp form at any batch,
-    sum-product packs only launches of 8,192 codewords and more at Z <= 16);
+    rule: the min-sum family at Z <= 32 takes the warp form but for the
+    smallest launches, sum-product packs only launches of 8,192 codewords
+    and more at Z <= 16);
     1 runs one block per codeword; P > 1 asks for P and raises where P*Z
-    exceeds a block's threads or shared memory.  Results do not depend on
-    it.
+    exceeds a block's threads or shared memory (the warp form's blocks hold
+    what fits of them, ``block_codewords``).  Results do not depend on it.
 
     ``_threads`` (internal, for ``tools/flooding_shapes.py``,
     ``exp_bf16.py`` and ``exp_kernel_tiles.py``, which time the alternatives
     to the block-size rule): a flooding launch's threads
     per block instead of ``flooding_threads``'s; 0 keeps the rule.  Results
     do not depend on it.  ``_lib`` (internal, for
-    ``tools/layered_probe.py``): a library of the schedule's kernel to launch
-    instead of the built one (``declare``d); None keeps the built one.
+    ``tools/layered_probe.py`` and ``tools/flooding_probe.py``): a library of
+    the schedule's kernel to launch instead of the built one (``declare``d),
+    built from sources that size their blocks and scratch as this one does;
+    None keeps the built one.
 
     A CUDA tensor launches the kernel on the current stream without
     synchronising (or raises); a CPU tensor runs ``decode_plain``.  The
@@ -1004,11 +1034,9 @@ def decode(
                                               _block_slots(params, layout, P))
         assert need == flooding_shared_bytes(params, layout, P)
     else:
-        # another build's sources (``_lib``) may size their blocks otherwise
-        need = (lib.ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P) if _lib is None
-                else 0)
-        assert _lib is not None or need == shared_bytes(
-            schedule, Z, nc, nr, E, P, algorithm=algorithm, message_dtype=message_dtype)
+        need = lib.ldpc_layered_shared_bytes(rule, bf16, Z, nc, nr, E, P)
+        assert need == shared_bytes(schedule, Z, nc, nr, E, P, algorithm=algorithm,
+                                    message_dtype=message_dtype)
     with torch.cuda.device(dev):
         have = getattr(lib, name + "_max_shared_bytes")()
     if need > have:
@@ -1026,15 +1054,12 @@ def decode(
         # scratch for the check-to-variable messages; never zero-filled
         # (sweep 0 does not read it)
         spec = scratch_shape(params, n, schedule, algorithm, message_dtype, P)
-        if _lib is not None and not flooding:
-            spec = _any_layered_scratch(params, n, algorithm, dtype, P)
         scratch = None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
-        if not flooding and _lib is None:
+        if not flooding:
             share = lib.ldpc_layered_scratch_bytes(rule, bf16, Z, nc, nr, E, P)
             assert (share * -(-n // P) if layout == LAYOUT_SCRATCH else 4) == (
                 scratch.numel() * scratch.element_size())
-        assert _lib is not None or (scratch is not None) == (
-            not flooding or (layout == LAYOUT_SCRATCH and P > 1))
+        assert (scratch is not None) == (not flooding or (layout == LAYOUT_SCRATCH and P > 1))
         lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
         a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
         block = ([P, layout, shape["threads"], _block_slots(params, layout, P)]

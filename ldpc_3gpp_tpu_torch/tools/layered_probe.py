@@ -99,6 +99,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import inspect
 import json
 import os
 import re
@@ -344,7 +345,8 @@ _PK_WARP_ALIGNED = (
     (SOURCE, "((size_t)nr * RowWords<MSG>::N * L) + t;\n",
      "((size_t)nr * RowWords<MSG>::N * L) + k * Z + z;\n", 1),
     (SOURCE, _PK_ROW_END + "      __syncthreads();\n", _PK_ROW_END + "      __syncwarp();\n", 1),
-    (SOURCE, "                                                         : (P * Z + 31) / 32 * 32;\n",
+    (SOURCE, "warp_count(Z, P) * 32 : (P * Z + 31) / 32 * 32;\n",
+     "warp_count(Z, P) * 32\n"
      "      : (P > 1 && Z <= 32 ? (P + 32 / Z - 1) / (32 / Z) * 32 : (P * Z + 31) / 32 * 32);\n",
      1),
 )
@@ -380,8 +382,7 @@ _PK_NO_STRAGGLERS = (SOURCE, "      if (__syncthreads_and(done)) break;\n",
                      "      if (__syncthreads_or(done)) break;\n", 1)
 # every min-sum launch of P > 1 in the packed kernel, as before the warp form
 _PK_BLOCK_FORM = (
-    (SOURCE, "  if (rule == RULE_SUM_PRODUCT || P < 2 || Z > 32) return false;\n",
-     "  return false;\n", 1),
+    (SOURCE, "  return rule != RULE_SUM_PRODUCT && P > 1 && Z <= 32;\n", "  return false;\n", 1),
 )
 BLOCK_VARIANTS = {
     "kernel": _PK_BLOCK_FORM,
@@ -508,15 +509,15 @@ def probe_packed(device, batches=None, family: str = "packed") -> dict:
                     continue
 
                 def times(kw):
-                    return [time_ms(lambda: decoder_cuda.decode(
-                        params, d, _lib=lib, codewords_per_block=P, **kw), reps)
+                    return [time_ms(lambda: decode_build(
+                        lib, params, d, codewords_per_block=P, **kw), reps)
                         for _ in range(means)]
 
                 rec = dict(ptxas, blocks_per_sm=lib.ldpc_layered_blocks_per_sm(
                     0, 0, P, params.Z_c, params.num_cols, params.num_rows,
                     len(params.edges[0])), budget_ms=times(budget), budget=kw["iterations"])
                 if v in exact:
-                    res = decoder_cuda.decode(params, d, _lib=lib, codewords_per_block=P, **kw)
+                    res = decode_build(lib, params, d, codewords_per_block=P, **kw)
                     torch.cuda.synchronize()
                     got = (res.bits, res.parity_ok, res.iterations)
                     if reference is None:
@@ -552,6 +553,52 @@ def build_sources(sources: dict, name: str, entry: str) -> dict:
             continue
         out[v] = (decoder_cuda.declare(ctypes.CDLL(lib), name), _ptxas(log, entry))
     return out
+
+
+def decode_build(lib, params: LDPCParams, llr: torch.Tensor, **kw) -> decoder_cuda.DecodeResult:
+    """``decoder_cuda.decode`` of a layered launch (CUDA ``llr``, the same
+    arguments) through ``lib``, a build of other sources that may size its
+    blocks otherwise (a ``packed_block`` variant, another tree's kernel):
+    every min-sum launch of P > 1 gets the packed kernel's message scratch,
+    which also holds the warp form's codeword counter, and the library checks
+    its own block."""
+    a = inspect.signature(decoder_cuda.decode).bind(params, llr, **kw)
+    a.apply_defaults()
+    a = a.arguments
+    algorithm, message_dtype = a["algorithm"], a["message_dtype"]
+    dtype, nci, out_cols, alpha_schedule = decoder_cuda._check_arguments(
+        params, llr, algorithm, "layered", message_dtype, a["channel_format"],
+        a["output_format"], a["alpha_schedule"])
+    Z, nc, nr, E = params.Z_c, params.num_cols, params.num_rows, len(params.edges[0])
+    dev = llr.device
+    flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
+    n = flat.shape[0]
+    P = decoder_cuda.resolve_codewords_per_block(
+        params, n, "layered", a["codewords_per_block"], algorithm, message_dtype,
+        decoder_cuda._sm_count(dev))
+    if P > 1 and algorithm != "sum-product":
+        shape = ((-(-n // P), nr, decoder_cuda.COMPRESSED_WORDS[dtype], P * Z), torch.int32)
+    else:
+        shape = decoder_cuda.scratch_shape(params, n, "layered", algorithm, message_dtype, P)
+    scratch = torch.empty(shape[0], dtype=shape[1], device=dev)
+    plans = decoder_cuda._graph_device(
+        params, decoder_cuda._resolve_layer_order(params, a["layer_order"]), dev)
+    bits = torch.empty((n, out_cols * Z), dtype=torch.int8, device=dev)
+    ok = torch.empty((n,), dtype=torch.int32, device=dev)
+    iters = torch.empty((n,), dtype=torch.int32, device=dev)
+    lo, hi = params.filler_range_d if a["channel_format"] == "d" else (0, 0)
+    a0, n0 = alpha_schedule if alpha_schedule is not None else (a["alpha"], 0)
+    with torch.cuda.device(dev):
+        err = lib.ldpc_layered_decode(
+            flat.data_ptr(), bits.data_ptr(), ok.data_ptr(), iters.data_ptr(),
+            scratch.data_ptr(), *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
+            int(a["channel_format"] == "d"), lo, hi, int(a["iterations"]),
+            int(bool(a["early_termination"])), decoder_cuda._RULE_CODES[algorithm],
+            int(dtype == torch.bfloat16), P, float(a["alpha"]), float(a["beta"]), float(a0),
+            int(n0), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ldpc_layered kernel launch failed: CUDA error {err}")
+    return decoder_cuda.DecodeResult(bits=bits, parity_ok=ok.to(torch.bool), iterations=iters)
 
 
 def _ptxas(log: str, entry: str) -> dict:

@@ -4,10 +4,10 @@ turns on one card.
 ``time_kernels.py`` compares two checkouts through their own packages; this
 tool compares sources of ``csrc/ldpc_layered.cu`` (each a directory holding
 ``ldpc_layered.cu`` and ``ldpc_bp.cuh``, for example the ``csrc/`` of a
-parent unpacked with ``git archive``) through this package's wrapper, which
-they must share the C interface of.  For each source it builds one library
-with the package's nvcc flags (one nvcc each, all started together) and
-records the min-sum kernel's blocks per SM at the flagship shape; then:
+parent unpacked with ``git archive``) through ``layered_probe.decode_build``,
+which they must share the decode entry of.  For each source it builds one
+library with the package's nvcc flags (one nvcc each, all started together)
+and records the min-sum kernel's blocks per SM at the flagship shape; then:
 
 - every source but the first against the plain version, tolerance 0, at
   small shapes (BG1 Z=3, 5, 20 and BG2 Z=15, 20, 52, 384, 64 codewords at
@@ -124,8 +124,8 @@ def main(argv=None) -> int:
             want = decoder_cuda.decode_plain(params, d, **kw)
             for name in others:
                 for P in (1, 4) if Z <= 32 else (1,):
-                    got = decoder_cuda.decode(params, d, _lib=libs[name], codewords_per_block=P,
-                                              **kw)
+                    got = layered_probe.decode_build(libs[name], params, d, codewords_per_block=P,
+                                                     **kw)
                     torch.cuda.synchronize()
                     require_equal(got, want, (name, bg, Z, P, kw))
                     cases += 1
@@ -136,15 +136,16 @@ def main(argv=None) -> int:
         d = noisy_llrs(params, n, esn0_db, 21, dev)
         kw = dict(kw, codewords_per_block=decoder_cuda.resolve_codewords_per_block(
             params, n, "layered", kw.get("codewords_per_block", 0), kw["algorithm"]))
-        ref = decoder_cuda.decode(params, d, _lib=libs[first], **kw)
+        ref = layered_probe.decode_build(libs[first], params, d, **kw)
         for name in others:
-            got = decoder_cuda.decode(params, d, _lib=libs[name], **kw)
+            got = layered_probe.decode_build(libs[name], params, d, **kw)
             torch.cuda.synchronize()
             require_equal(got, ref, (row, name))
         ms = {name: [] for name in libs}
         for name in order:
             lib = libs[name]
-            ms[name].append(time_ms(lambda: decoder_cuda.decode(params, d, _lib=lib, **kw), reps))
+            ms[name].append(time_ms(lambda: layered_probe.decode_build(lib, params, d, **kw),
+                                    reps))
         print(json.dumps({"card": card, "row": row, "codewords": n, "ms": ms,
                           "codewords_per_block": kw["codewords_per_block"],
                           "mean_iterations": float(ref.iterations.float().mean())}), flush=True)

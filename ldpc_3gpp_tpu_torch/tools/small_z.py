@@ -3,15 +3,17 @@
 Two tables behind two decisions of ``ops/decoder_cuda.py``:
 
 - ``packing_table``: microseconds per codeword of the BP kernels by lifting
-  size Z, codewords per block P, batch n and schedule, on the same LLRs for
-  every P.  ``auto_codewords_per_block`` is derived from it.
+  size Z, codewords per block P, batch n, schedule and (layered) message
+  type, on the same LLRs for every P.  ``auto_codewords_per_block`` is
+  derived from it.
 - ``routing_table``: the kernel (with its best P) against the plain PyTorch
   decoders of backend 'fast' on the card, Z = 2..16, same inputs.
   ``supports`` (what backend 'auto' sends to the kernels) is derived from it.
 
-    python3 -m ldpc_3gpp_tpu_torch.tools.small_z
+    python3 -m ldpc_3gpp_tpu_torch.tools.small_z [packing]
 
-prints both as JSON lines with the card's name and power limit.  Needs a CUDA
+prints both as JSON lines with the card's name and power limit (with
+``packing``, the packing tables only).  Needs a CUDA
 device.  Min-sum, 8 iterations, early termination, 'd' input and 'sys'
 output, rate 1/3 QPSK at 1.0 dB (a mix of sweeps to convergence); a third
 table repeats the packing measurement at a 50-iteration budget at 1.0 and
@@ -35,12 +37,14 @@ from .op_rates import card_name_and_power_limit, time_ms
 
 ITERATIONS = 8
 ESN0_DB = 1.0
-PACKING_ZS = (2, 8, 20, 48, 96, 144, 208)
+PACKING_ZS = (2, 5, 8, 13, 20, 26, 32, 48, 96, 144, 208)
 # codewords per block: up to 64 for the layered warp form (a block of up to
 # 16 warps, 32 // Z codewords a warp), up to 16 for flooding
 PACKING_PS = (1, 2, 4, 8, 16, 32, 64)
 FLOODING_PS = (1, 2, 4, 8, 16)
 PACKING_NS = (256, 2048, 4096, 16384)
+# the layered rows' message types (flooding: float32)
+PACKING_DTYPES = ("float32", "bfloat16")
 ROUTING_ZS = tuple(range(2, 17))
 ROUTING_NS = (256, 2048)
 DECODE_KW = dict(iterations=ITERATIONS, algorithm="min-sum",
@@ -97,21 +101,24 @@ def fitting_ps(params: LDPCParams, schedule: str, ps=None):
 
 def packing_table(device, zs=PACKING_ZS, ps=PACKING_PS, ns=PACKING_NS,
                   schedules=decoder_cuda.SCHEDULES, iterations=ITERATIONS,
-                  esn0_db=ESN0_DB):
-    """One record per (Z, schedule, n): microseconds per codeword for every P
-    that fits and for the automatic choice, the best P and the automatic
-    choice."""
+                  esn0_db=ESN0_DB, message_dtypes=PACKING_DTYPES):
+    """One record per (Z, schedule, message type, n): microseconds per
+    codeword for every P that fits and for the automatic choice, the best P
+    and the automatic choice."""
     rows = []
-    kw = dict(DECODE_KW, iterations=iterations)
     for Z in zs:
         params = table_params(Z)
         llr = noisy_llrs(params, max(ns), esn0_db, 100 + Z, device)
-        for schedule in schedules:
+        for schedule, dtype in [(s, t) for s in schedules
+                                for t in (message_dtypes if s == "layered" else ("float32",))]:
+            kw = dict(DECODE_KW, iterations=iterations, message_dtype=dtype)
             fit = fitting_ps(params, schedule, ps if schedule == "layered" else
                              [P for P in ps if P in FLOODING_PS])
-            autos = {n: decoder_cuda.auto_codewords_per_block(params, n, schedule) for n in ns}
+            autos = {n: decoder_cuda.auto_codewords_per_block(
+                params, n, schedule, kw["algorithm"], dtype) for n in ns}
             occupancy = {P: decoder_cuda.blocks_per_sm(
-                params, schedule, codewords_per_block=P) for P in {*fit, *autos.values()}}
+                params, schedule, message_dtype=dtype, codewords_per_block=P)
+                for P in {*fit, *autos.values()}}
             for n in ns:
                 x = llr[:n]
                 reps = max(3, min(30, 32768 // n))
@@ -122,7 +129,8 @@ def packing_table(device, zs=PACKING_ZS, ps=PACKING_PS, ns=PACKING_NS,
                     us[P] = time_ms(fn, reps) * 1e3 / n
                 res = decoder_cuda.decode(params, x, schedule=schedule, **kw)
                 rows.append({
-                    "bg": params.BG, "Z": Z, "A": params.A, "schedule": schedule, "n": n,
+                    "bg": params.BG, "Z": Z, "A": params.A, "schedule": schedule,
+                    "message_dtype": dtype, "n": n,
                     "iterations": iterations, "esn0_db": esn0_db,
                     "passed": float(res.parity_ok.float().mean()),
                     "us_per_codeword": us, "blocks_per_sm": occupancy,
@@ -165,7 +173,8 @@ def routing_table(device, zs=ROUTING_ZS, ns=ROUTING_NS,
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("small_z: no CUDA device; this tool measures a GPU", file=sys.stderr)
         return 1
@@ -176,10 +185,12 @@ def main() -> int:
     # a sweep's conditions: the reference's 50-iteration budget, below and
     # above the waterfall, where the codewords of a block stop far apart
     for esn0_db in (1.0, 3.0):
-        for row in packing_table(device, zs=(2, 8, 20, 48), ns=(4096, 16384),
+        for row in packing_table(device, zs=(2, 8, 20, 32, 48), ns=(4096, 16384),
                                  iterations=50, esn0_db=esn0_db):
             print(json.dumps({"table": "packing_budget_50", **row, "card": card}),
                   flush=True)
+    if "packing" in args:
+        return 0
     for row in routing_table(device):
         print(json.dumps({"table": "routing", **row, "card": card}), flush=True)
     return 0

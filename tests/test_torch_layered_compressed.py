@@ -258,17 +258,18 @@ def test_scratch_shape_per_codeword():
     q = LDPCParams(**Z20)
     Eq = len(q.edges[0])
     # the min-sum family's Z=20 codewords take the warp form, their words on
-    # chip and one int of scratch, its codeword counter; nineteen (whose warps
-    # would not fit a block) the packed kernel's scratch
+    # chip and one int of scratch, its codeword counter (nineteen too: a
+    # block holds sixteen of them); above Z=32 the packed kernel's scratch
     assert t_cuda.scratch_shape(q, 53, P=4) == ((1,), torch.int32)
-    assert t_cuda.scratch_shape(q, 53, P=19) == ((3, q.num_rows, 3, 380), torch.int32)
+    assert t_cuda.scratch_shape(q, 53, P=19) == ((1,), torch.int32)
+    z96 = small_z.params_for_z(1, 96)
+    assert t_cuda.scratch_shape(z96, 53, P=2) == ((27, z96.num_rows, 3, 192), torch.int32)
     assert t_cuda.scratch_shape(q, 53, "layered", "sum-product", P=4) == (
         (14, Eq, 80), torch.float32)
     # the packed flooding kernel keeps four Z=20 codewords' messages on chip;
     # where they do not fit (BG1 Z=96, two per block) it keeps each
     # codeword's E*Z unrounded messages, float32 also for bfloat16 messages
     assert t_cuda.scratch_shape(q, 53, "flooding", "min-sum", "bfloat16", P=4) is None
-    z96 = small_z.params_for_z(1, 96)
     assert t_cuda.scratch_shape(z96, 53, "flooding", "min-sum", "bfloat16", P=2) == (
         (27, 2, E, 96), torch.float32)
     assert t_cuda.scratch_shape(q, 53, "flooding") is None

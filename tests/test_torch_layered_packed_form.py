@@ -19,6 +19,7 @@ Also: the automatic rule at every lifting size, the shared-memory formula
 against the source's, and that the probe's ``packed`` and ``packed_block``
 variants leave the other kernels' text alone.
 """
+import itertools
 import re
 from functools import partial
 
@@ -311,8 +312,7 @@ def test_warp_form_equals_plain(code, case):
     want = t_cuda.decode_plain(params, src, **io, **kw)
     order = np.random.default_rng(Z).permutation(src.shape[0])
     for P in (_p(Z, ragged=sorted(CASES).index(case) % 2 == 1),):
-        assert t_cuda.warp_form(params, P, kw.get("algorithm", "min-sum"),
-                                kw.get("message_dtype", "float32"))
+        assert t_cuda.warp_form(params, P, kw.get("algorithm", "min-sum"))
         stats = {"zero_magnitudes": 0}
         got = _decode_warp_form(params, src, P, order=order, stats=stats, **io, **kw)
         _assert_equal(got, want)
@@ -363,24 +363,28 @@ def test_words_never_overlap():
 
 
 def test_automatic_rule_at_every_lifting_size():
-    """At every lifting size and batch the rule's P fits a block; where it
-    packs the min-sum family it is the warp form (sum-product keeps the
-    packed kernel), and its result equals P=1 (the emulation at three
-    sizes)."""
+    """At every lifting size and batch, with either message type, the rule's
+    P fits a block (at most 384 lanes); where it packs the min-sum family it
+    is the warp form and a block holds all P (sum-product keeps the packed
+    kernel), and its result equals P=1 (the emulation at three sizes)."""
     for Z in ALL_LIFTING_SIZES:
         params = small_z.table_params(Z)
-        for n in (1, 256, 2048, 16384, 65536):
-            for algorithm in ("min-sum", "offset-min-sum", "sum-product"):
-                P = t_cuda.auto_codewords_per_block(params, n, "layered", algorithm)
-                assert P >= 1 and t_cuda._fits("layered", params, P)
-                assert t_cuda.resolve_codewords_per_block(params, n, "layered", 0,
-                                                          algorithm) == P
-                if P > 1 and algorithm != "sum-product":
-                    assert t_cuda.warp_form(params, P, algorithm)
-                if Z > t_cuda.WARP_FORM_MAX_Z:
-                    assert P == 1
-                if algorithm == "sum-product":  # the packed kernel's rule
-                    assert not t_cuda.warp_form(params, P, algorithm)
+        for n, (algorithm, dtype) in itertools.product(
+                (1, 256, 2048, 16384, 65536),
+                (("min-sum", "float32"), ("min-sum", "bfloat16"),
+                 ("offset-min-sum", "bfloat16"), ("sum-product", "float32"))):
+            P = t_cuda.auto_codewords_per_block(params, n, "layered", algorithm, dtype)
+            assert P >= 1 and t_cuda._fits("layered", params, P, algorithm, dtype)
+            assert P * Z <= t_cuda.MAX_BLOCK_THREADS
+            assert t_cuda.block_codewords(params, P, algorithm, dtype) == P
+            assert t_cuda.resolve_codewords_per_block(params, n, "layered", 0,
+                                                      algorithm, dtype) == P
+            if P > 1 and algorithm != "sum-product":
+                assert t_cuda.warp_form(params, P, algorithm)
+            if Z > t_cuda.WARP_FORM_MAX_Z:
+                assert P == 1
+            if algorithm == "sum-product":  # the packed kernel's rule
+                assert not t_cuda.warp_form(params, P, algorithm)
     for bg, Z in ((1, 2), (2, 8), (2, 20)):
         params = small_z.params_for_z(bg, Z)
         P = t_cuda.auto_codewords_per_block(params, 65536, "layered")
@@ -403,30 +407,37 @@ def _c_function(src, name):
 
 
 def test_shared_bytes_formula_is_the_sources():
-    """``warp_shared_bytes`` and ``warp_form`` are the source's formulas
-    (warp_table_bytes, warp_state_bytes, warp_shared_bytes, warp_form, with
-    the source's limits), and the figures of the design: one Z=20 codeword's
-    words are 10,080 bytes and its state 14,240, four codewords with the
-    edge table and row records 60,448, sixteen (one block per SM) 231,328;
-    BG1 Z=32 at 12 codewords does not fit and takes the packed kernel."""
+    """``warp_shared_bytes``, ``warp_form``, ``warp_max_warps`` and
+    ``block_codewords`` are the source's formulas (warp_table_bytes,
+    warp_state_bytes, warp_shared_bytes, warp_form, warp_max_warps,
+    block_codewords, with the source's limits), and the figures of the
+    design: one Z=20 codeword's words are 10,080 bytes and its state 14,240,
+    four codewords with the edge table and row records 60,448, sixteen (one
+    block per SM) 231,328; BG1 Z=32 at 12 codewords asked for holds 8 a
+    block (what its shared memory holds), BG2 Z=32 with bfloat16 messages
+    12 (384 lanes)."""
     src = _source()
-    helpers = {"align16": lambda n: -(-n // 16) * 16,
+    helpers = {"align16": lambda n: -(-n // 16) * 16, "min": min,
                "warp_codewords": t_cuda.warp_codewords, "warp_count": t_cuda.warp_count,
                "WARP_FORM_SHARED_LIMIT": int(re.search(
-                   r"WARP_FORM_SHARED_LIMIT = (\d+);", src).group(1))}
+                   r"WARP_FORM_SHARED_LIMIT = (\d+);", src).group(1)),
+               "MAX_THREADS": int(re.search(r"#define MAX_THREADS (\d+)",
+                                            _source(layered_probe.HEADER)).group(1))}
     assert helpers["WARP_FORM_SHARED_LIMIT"] == t_cuda.MAX_BLOCK_SHARED_BYTES
+    assert helpers["MAX_THREADS"] == t_cuda.MAX_BLOCK_THREADS
 
     def c_fn(name, args):
-        text = _c_function(src, name)
-        lines = [ln.strip().rstrip(";") for ln in text.splitlines()]
+        text = _c_function(src, name).replace("(int)", "")
+        stmts = [" ".join(st.split()).replace(" / ", " // ") for st in text.split(";")
+                 if st.strip()]
         scope = dict(helpers)
 
         def fn(*values):
             local = dict(zip(args, values))
-            for ln in lines[:-1]:
-                lhs, rhs = ln.split("=", 1)
+            for st in stmts[:-1]:
+                lhs, rhs = st.split("=", 1)
                 local[lhs.strip()] = eval(rhs, scope, local)  # noqa: S307 - the repo's source
-            return eval(lines[-1].replace("return", "", 1), scope, local)  # noqa: S307
+            return eval(stmts[-1].replace("return", "", 1), scope, local)  # noqa: S307
         return fn
 
     helpers["warp_table_bytes"] = c_fn("warp_table_bytes", ("nr", "E"))
@@ -436,26 +447,34 @@ def test_shared_bytes_formula_is_the_sources():
     helpers["WARP_FORM_MAX_THREADS"] = int(re.search(
         r"#define WARP_FORM_MAX_THREADS (\d+)", src).group(1))
     assert helpers["WARP_FORM_MAX_THREADS"] == t_cuda.WARP_FORM_MAX_THREADS
-    # the source's warp_form: the same conditions and limits as ``_warp_form``
-    form = _c_function(src, "warp_form")
-    assert "if (rule == RULE_SUM_PRODUCT || P < 2 || Z > 32) return false;" in form
-    assert ("return warp_count(Z, P) * 32 <= WARP_FORM_MAX_THREADS &&\n"
-            "         warp_shared_bytes(Z, nc, nr, E, P, N) <= WARP_FORM_SHARED_LIMIT;") in form
+    c_max_warps = c_fn("warp_max_warps", ("Z", "nc", "nr", "E", "G", "words"))
+    # the source's warp_form and block_codewords: the same conditions as
+    # ``_warp_form`` and ``_block_codewords``
+    assert _c_function(src, "warp_form") == (
+        "return rule != RULE_SUM_PRODUCT && P > 1 && Z <= 32;")
+    codewords = _c_function(src, "block_codewords")
+    assert "if (!warp_form(rule, Z, P)) return P;" in codewords
+    assert "return min(P, G * warp_max_warps(Z, nc, nr, E, G, N));" in codewords
     assert t_cuda.WARP_FORM_MAX_Z == 32
     for bg in (1, 2):
         params = small_z.params_for_z(bg, 8)
         nc, nr, E = params.num_cols, params.num_rows, len(params.edges[0])
-        for Z in [z for z in ALL_LIFTING_SIZES if z <= 32]:
-            for P in range(2, 24):
-                for words in (0, 2, 3):
+        for Z in [z for z in ALL_LIFTING_SIZES if z <= 48]:
+            for P in range(1, 24):
+                G = t_cuda.warp_codewords(Z, P) if Z <= 32 else 0
+                for words in (0, 2, 3) if G else ():
                     assert t_cuda.warp_shared_bytes(Z, nc, nr, E, P, words) == c_shared(
                         Z, nc, nr, E, P, words)
+                    if words:
+                        assert t_cuda.warp_max_warps(Z, nc, nr, E, G, words) == c_max_warps(
+                            Z, nc, nr, E, G, words)
                 for algorithm, dtype, words in (("min-sum", "float32", 3),
-                                                ("offset-min-sum", "bfloat16", 2)):
-                    assert t_cuda._warp_form(Z, nc, nr, E, P, algorithm, dtype) == (
-                        t_cuda.warp_count(Z, P) * 32 <= helpers["WARP_FORM_MAX_THREADS"]
-                        and c_shared(Z, nc, nr, E, P, words) <= helpers["WARP_FORM_SHARED_LIMIT"])
-                assert not t_cuda._warp_form(Z, nc, nr, E, P, "sum-product", "float32")
+                                                ("offset-min-sum", "bfloat16", 2),
+                                                ("sum-product", "float32", 3)):
+                    form = algorithm != "sum-product" and P > 1 and Z <= 32
+                    assert t_cuda._warp_form(Z, P, algorithm) == form
+                    assert t_cuda._block_codewords(Z, nc, nr, E, P, algorithm, dtype) == (
+                        min(P, G * c_max_warps(Z, nc, nr, E, G, words)) if form else P)
     q = small_z.table_params(20)
     nc, nr, E = q.num_cols, q.num_rows, len(q.edges[0])
     assert t_cuda.warp_shared_bytes(20, nc, nr, E, 1, 3) - t_cuda.warp_shared_bytes(
@@ -465,16 +484,49 @@ def test_shared_bytes_formula_is_the_sources():
     assert t_cuda.warp_shared_bytes(20, nc, nr, E, 16, 3) == 231_328
     assert t_cuda.launch_shape(q, 2048, "layered", 16) == dict(
         codewords_per_block=16, threads=512, layout=t_cuda.LAYOUT_ON_CHIP)
+    assert t_cuda.launch_shape(q, 2048, "layered", 19) == dict(
+        codewords_per_block=16, threads=512, layout=t_cuda.LAYOUT_ON_CHIP)
     assert t_cuda.scratch_shape(q, 8, P=4) == ((1,), torch.int32)
     b32 = small_z.params_for_z(1, 32)
-    assert t_cuda.scratch_shape(b32, 24, P=12) == ((2, b32.num_rows, 3, 384), torch.int32)
+    assert t_cuda.scratch_shape(b32, 24, P=12) == ((1,), torch.int32)
     assert t_cuda.launch_shape(b32, 24, "layered", 12) == dict(
-        codewords_per_block=12, threads=384, layout=t_cuda.LAYOUT_SCRATCH)
+        codewords_per_block=8, threads=256, layout=t_cuda.LAYOUT_ON_CHIP)
+    z32 = small_z.params_for_z(2, 32)
+    assert t_cuda.warp_form_warps(z32) == 10 and t_cuda.warp_form_warps(z32, "bfloat16") == 12
+    assert t_cuda.launch_shape(z32, 4096, "layered", message_dtype="bfloat16") == dict(
+        codewords_per_block=12, threads=384, layout=t_cuda.LAYOUT_ON_CHIP)
     assert t_cuda.launch_shape(q, 24, "layered", 4) == dict(
         codewords_per_block=4, threads=128, layout=t_cuda.LAYOUT_ON_CHIP)
     # sum-product keeps the packed kernel's block of P*Z lanes
     assert t_cuda.launch_shape(q, 24, "layered", 4, algorithm="sum-product") == dict(
         codewords_per_block=4, threads=96, layout=t_cuda.LAYOUT_SCRATCH)
+    assert t_cuda.launch_shape(b32, 24, "layered", 12, algorithm="sum-product") == dict(
+        codewords_per_block=12, threads=384, layout=t_cuda.LAYOUT_SCRATCH)
+
+
+@pytest.mark.parametrize("message_dtype", ["float32", "bfloat16"])
+def test_every_warp_form_block_fits(message_dtype):
+    """Every P that may be asked for (P*Z within 384 lanes) at every lifting
+    size up to 32 of both base graphs gives a warp-form block of at most P
+    codewords within a block's threads (512) and its shared memory, and no
+    fewer than one warp's codewords."""
+    for bg, Z in itertools.product((1, 2), [z for z in ALL_LIFTING_SIZES if z <= 32]):
+        try:
+            params = small_z.params_for_z(bg, Z)
+        except ValueError:
+            continue
+        nc, nr, E = params.num_cols, params.num_rows, len(params.edges[0])
+        for P in range(2, t_cuda.MAX_BLOCK_THREADS // Z + 1):
+            assert t_cuda._fits("layered", params, P, "min-sum", message_dtype)
+            B = t_cuda.block_codewords(params, P, "min-sum", message_dtype)
+            G = t_cuda.warp_codewords(Z, P)
+            assert min(P, G) <= B <= P and t_cuda.warp_codewords(Z, B) == G
+            shape = t_cuda.launch_shape(params, 4096, "layered", P, message_dtype=message_dtype)
+            assert shape == dict(codewords_per_block=B, threads=t_cuda.warp_count(Z, B) * 32,
+                                 layout=t_cuda.LAYOUT_ON_CHIP)
+            assert shape["threads"] <= t_cuda.WARP_FORM_MAX_THREADS
+            assert t_cuda.shared_bytes("layered", Z, nc, nr, E, P, message_dtype=message_dtype) \
+                <= t_cuda.MAX_BLOCK_SHARED_BYTES
 
 
 def _body(text, start):

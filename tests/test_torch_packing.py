@@ -76,10 +76,12 @@ def test_chain_config_carries_codewords_per_block():
 
 
 def test_automatic_rule_fits_every_lifting_size():
-    """For every TS38.212 lifting size and batch: P >= 1 and the block within
-    its threads and shared memory.  The min-sum family at Z <= 32 takes the
-    warp form at every batch, as many warps per SM as the launch fills, up to
-    what an SM's shared memory holds; sum-product keeps the packed kernel's
+    """For every TS38.212 lifting size and batch, with float32 and bfloat16
+    messages: P >= 1 and the block within its threads (P*Z within 384 lanes)
+    and shared memory.  The min-sum family at Z <= 32 takes the
+    warp form, as many warps per SM as the launch fills, up to what an SM's
+    shared memory holds, but for one codeword per block at two codewords per
+    SM or fewer (Z > 2) and at Z=32 below two rounds; sum-product keeps the packed kernel's
     measured cuts (no packing above 64 lanes per block, in a launch too small
     to fill the card, or for full warps); flooding never packs."""
     seen = set()
@@ -87,24 +89,30 @@ def test_automatic_rule_fits_every_lifting_size():
         params = small_z.table_params(Z)
         assert params.Z_c == Z
         E = len(params.edges[0])
-        for schedule, algorithm in (("layered", "min-sum"), ("layered", "sum-product"),
-                                    ("flooding", "min-sum")):
+        for schedule, algorithm, dtype in (
+                ("layered", "min-sum", "float32"), ("layered", "min-sum", "bfloat16"),
+                ("layered", "sum-product", "float32"), ("flooding", "min-sum", "float32")):
             for n in (1, 256, 2048, 8192, 16384, 65536):
-                P = t_cuda.auto_codewords_per_block(params, n, schedule, algorithm)
+                P = t_cuda.auto_codewords_per_block(params, n, schedule, algorithm, dtype)
                 seen.add((algorithm, P))
-                assert P >= 1 and t_cuda._fits(schedule, params, P)
+                assert P >= 1 and t_cuda._fits(schedule, params, P, algorithm, dtype)
+                assert P * Z <= t_cuda.MAX_BLOCK_THREADS
                 smem = (t_cuda.flooding_shared_bytes(params, t_cuda.flooding_layout(params))
                         if schedule == "flooding" and P == 1 else
-                        t_cuda.shared_bytes(schedule, Z, params.num_cols,
-                                            params.num_rows, E, P, algorithm=algorithm))
+                        t_cuda.shared_bytes(schedule, Z, params.num_cols, params.num_rows, E, P,
+                                            algorithm=algorithm, message_dtype=dtype))
                 assert smem <= t_cuda.MAX_BLOCK_SHARED_BYTES == 232_448
                 if schedule == "flooding" or Z > t_cuda.WARP_FORM_MAX_Z:
                     assert P == 1
                 elif algorithm == "min-sum":
                     G = 32 // Z
-                    W = min(t_cuda.warp_form_warps(params), -(-n // (132 * G)))
-                    assert P == (G * W if G * W > 1 else 1)
+                    W = t_cuda.warp_form_warps(params, dtype)
+                    if (Z > 2 and n <= 2 * 132) or (Z == 32 and n < 2 * 132 * W):
+                        assert P == 1  # the smallest launches; Z=32 below two rounds
+                    W = min(W, -(-n // (132 * G)))
+                    assert P in (1, G * W if G * W > 1 else 1)
                     assert P == 1 or t_cuda.warp_form(params, P)
+                    assert t_cuda.block_codewords(params, P, algorithm, dtype) == P
                 else:  # the packed kernel's cuts
                     assert P == 1 or P in t_cuda.PACK_CHOICES
                     if 2 * Z > t_cuda.PACK_MAX_LANES or n < 2 * t_cuda.PACK_MIN_BLOCKS \
@@ -115,18 +123,25 @@ def test_automatic_rule_fits_every_lifting_size():
                         assert P * Z <= t_cuda.PACK_MAX_LANES
                         assert not t_cuda.warp_form(params, P, algorithm)
                 assert t_cuda.resolve_codewords_per_block(params, n, schedule, 0,
-                                                          algorithm) == P
+                                                          algorithm, dtype) == P
                 assert t_cuda.resolve_codewords_per_block(params, n, schedule, 1) == 1
         assert t_cuda.supports(params)
     assert {("sum-product", P) for P in (1, 2, 4, 8, 16)} <= seen
     z20, z8, z2 = (small_z.table_params(Z) for Z in (20, 8, 2))
-    # config #1's code: two warps a block at a sweep's smallest call, then
-    # one block of sixteen per SM (an SM's shared memory holds sixteen)
+    # config #1's code: one codeword per block at two codewords per SM or
+    # fewer, then one block of sixteen per SM (an SM's shared memory holds
+    # sixteen); Z=2 packs at any batch; Z=32 from two rounds of its blocks
     assert t_cuda.warp_form_warps(z20) == 16
     assert [t_cuda.auto_codewords_per_block(z20, n, "layered")
-            for n in (132, 256, 2048, 65536)] == [1, 2, 16, 16]
+            for n in (132, 256, 264, 265, 2048, 65536)] == [1, 1, 1, 3, 16, 16]
     assert [t_cuda.auto_codewords_per_block(z8, n, "layered")
-            for n in (256, 2048, 65536)] == [4, 16, 40]
+            for n in (256, 2048, 65536)] == [1, 16, 40]
+    assert [t_cuda.auto_codewords_per_block(z2, n, "layered")
+            for n in (256, 2048, 65536)] == [16, 16, 128]
+    z32 = small_z.table_params(32)
+    assert [t_cuda.auto_codewords_per_block(z32, n, "layered", "min-sum", dtype)
+            for dtype in ("float32", "bfloat16") for n in (2048, 2640, 3168)] == [
+                1, 10, 10, 1, 1, 12]
     assert [t_cuda.auto_codewords_per_block(z2, n, "layered", "sum-product")
             for n in (2048, 16384, 65536)] == [1, 4, 16]
     for p in (z2, z8):
