@@ -38,6 +38,7 @@ choice changes a result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -990,9 +991,11 @@ def decode(
     dtype, nci, out_cols, alpha_schedule = _check_arguments(
         params, llr, algorithm, schedule, message_dtype, channel_format,
         output_format, alpha_schedule)
-    if codewords_per_block:  # an explicit value must fit, on any device
-        resolve_codewords_per_block(params, 0, schedule, codewords_per_block, algorithm)
     if not llr.is_cuda:
+        # an explicit value must fit, on any device (a CUDA launch checks it
+        # in ``_launch_plan``)
+        if codewords_per_block:
+            resolve_codewords_per_block(params, 0, schedule, codewords_per_block, algorithm)
         return decode_plain(
             params, llr, iterations=iterations, algorithm=algorithm,
             alpha=alpha, beta=beta, early_termination=early_termination,
@@ -1012,23 +1015,82 @@ def decode(
     E = len(params.edges[0])
     name = KERNEL_NAMES[schedule]
     lib = _library(name) if _lib is None else _lib
+    dev = llr.device
+    batch_shape = llr.shape[:-1]
+    flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
+    n = flat.shape[0]
+    P, layout, spec, block = _launch_plan(
+        params, row_seq, n, schedule, int(codewords_per_block), _sm_count(dev), algorithm,
+        message_dtype, int(_threads), lib, dev)
+    plans = _graph_device(params, row_seq, dev)
+    if schedule == "flooding":
+        plans += _flooding_device(params, layout, P, dev)
+    bits = torch.empty((n, out_cols * Z), dtype=torch.int8, device=dev)
+    flags = torch.empty((2, n), dtype=torch.int32, device=dev)  # parity_ok, iterations
+    ok, iters = flags[0], flags[1]
+    if n:
+        # scratch for the check-to-variable messages; never zero-filled
+        # (sweep 0 does not read it)
+        scratch = None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
+        lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
+        a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
+        with _on_device(dev):
+            err = getattr(lib, name + "_decode")(
+                flat.data_ptr(), bits.data_ptr(), ok.data_ptr(), iters.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
+                int(channel_format == "d"), lo, hi, int(iterations),
+                int(bool(early_termination)), _RULE_CODES[algorithm],
+                int(dtype == torch.bfloat16), *block,
+                float(alpha), float(beta), float(a0), int(n0),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
+        key = (name, P, layout)
+        LAUNCHES_BY_P[key] = LAUNCHES_BY_P.get(key, 0) + 1
+    return DecodeResult(
+        bits=bits.reshape(batch_shape + (out_cols * Z,)),
+        parity_ok=ok.to(torch.bool).reshape(batch_shape),
+        iterations=iters.reshape(batch_shape),
+    )
+
+
+def _on_device(dev: torch.device):
+    """A context that makes ``dev`` the current CUDA device, or a null one
+    where it already is (entering one costs microseconds on every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(params: LDPCParams, row_seq, n: int, schedule: str, codewords_per_block: int,
+                 sms: int, algorithm: str, message_dtype: str, threads: int, lib,
+                 dev: torch.device) -> tuple:
+    """What ``decode`` launches for these arguments through ``lib`` on
+    ``dev``, checked against the library once per shape: (codewords per
+    block, layout, the scratch's (shape, dtype) or None, the launch's block
+    arguments).  ``threads``: ``decode``'s ``_threads``.  Raises where the
+    code exceeds the kernel's limits or the device's shared memory."""
+    Z, nc, nr = params.Z_c, params.num_cols, params.num_rows
+    E = len(params.edges[0])
+    name = KERNEL_NAMES[schedule]
     max_deg = _graph_plan(params, row_seq)[2]
     if (max_deg > getattr(lib, name + "_max_degree")()
             or Z > getattr(lib, name + "_max_z")()):
         raise ValueError(
             f"kernel limits exceeded: row degree {max_deg}, Z={Z}"
         )
-    dev = llr.device
-    batch_shape = llr.shape[:-1]
-    flat = llr.to(torch.float32).reshape(-1, nci * Z).contiguous()
-    n = flat.shape[0]
-    shape = launch_shape(params, n, schedule, codewords_per_block, _sm_count(dev),
-                         algorithm, message_dtype)
+    shape = launch_shape(params, n, schedule, codewords_per_block, sms, algorithm,
+                         message_dtype)
     P, layout = shape["codewords_per_block"], shape["layout"]
     flooding = schedule == "flooding"
-    rule, bf16 = _RULE_CODES[algorithm], int(dtype == torch.bfloat16)
-    if _threads and flooding:
-        shape["threads"] = int(_threads)  # the kernel checks it
+    rule = _RULE_CODES[algorithm]
+    bf16 = int(resolve_message_dtype(message_dtype, algorithm) == torch.bfloat16)
+    if threads and flooding:
+        shape["threads"] = threads  # the kernel checks it
     if flooding:
         need = lib.ldpc_flooding_shared_bytes(Z, nc, nr, E, P, layout,
                                               _block_slots(params, layout, P))
@@ -1044,43 +1106,13 @@ def decode(
             f"{name} needs {need} bytes of shared memory per block for "
             f"num_cols={nc}, Z={Z}; the device allows {have}"
         )
-    plans = _graph_device(params, row_seq, dev)
-    if flooding:
-        plans += _flooding_device(params, layout, P, dev)
-    bits = torch.empty((n, out_cols * Z), dtype=torch.int8, device=dev)
-    ok = torch.empty((n,), dtype=torch.int32, device=dev)
-    iters = torch.empty((n,), dtype=torch.int32, device=dev)
+    spec = scratch_shape(params, n, schedule, algorithm, message_dtype, P) if n else None
+    if n and not flooding:
+        share = lib.ldpc_layered_scratch_bytes(rule, bf16, Z, nc, nr, E, P)
+        assert (share * -(-n // P) if layout == LAYOUT_SCRATCH else 4) == (
+            int(np.prod(spec[0])) * torch.empty(0, dtype=spec[1]).element_size())
     if n:
-        # scratch for the check-to-variable messages; never zero-filled
-        # (sweep 0 does not read it)
-        spec = scratch_shape(params, n, schedule, algorithm, message_dtype, P)
-        scratch = None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
-        if not flooding:
-            share = lib.ldpc_layered_scratch_bytes(rule, bf16, Z, nc, nr, E, P)
-            assert (share * -(-n // P) if layout == LAYOUT_SCRATCH else 4) == (
-                scratch.numel() * scratch.element_size())
-        assert (scratch is not None) == (not flooding or (layout == LAYOUT_SCRATCH and P > 1))
-        lo, hi = params.filler_range_d if channel_format == "d" else (0, 0)
-        a0, n0 = alpha_schedule if alpha_schedule is not None else (alpha, 0)
-        block = ([P, layout, shape["threads"], _block_slots(params, layout, P)]
-                 if flooding else [P])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = getattr(lib, name + "_decode")(
-                flat.data_ptr(), bits.data_ptr(), ok.data_ptr(), iters.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                *(t.data_ptr() for t in plans), n, Z, nc, nr, E, out_cols,
-                int(channel_format == "d"), lo, hi, int(iterations),
-                int(bool(early_termination)), rule, bf16, *block,
-                float(alpha), float(beta), float(a0), int(n0), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-        LAUNCHES[name] += 1
-        key = (name, P, layout)
-        LAUNCHES_BY_P[key] = LAUNCHES_BY_P.get(key, 0) + 1
-    return DecodeResult(
-        bits=bits.reshape(batch_shape + (out_cols * Z,)),
-        parity_ok=ok.to(torch.bool).reshape(batch_shape),
-        iterations=iters.reshape(batch_shape),
-    )
+        assert (spec is not None) == (not flooding or (layout == LAYOUT_SCRATCH and P > 1))
+    block = ((P, layout, shape["threads"], _block_slots(params, layout, P))
+             if flooding else (P,))
+    return P, layout, spec, block

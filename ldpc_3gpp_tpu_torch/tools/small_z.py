@@ -10,10 +10,11 @@ Two tables behind two decisions of ``ops/decoder_cuda.py``:
   decoders of backend 'fast' on the card, Z = 2..16, same inputs.
   ``supports`` (what backend 'auto' sends to the kernels) is derived from it.
 
-    python3 -m ldpc_3gpp_tpu_torch.tools.small_z [packing]
+    python3 -m ldpc_3gpp_tpu_torch.tools.small_z [packing | split]
 
 prints both as JSON lines with the card's name and power limit (with
-``packing``, the packing tables only).  Needs a CUDA
+``packing``, the packing tables only; with ``split``, ``launch_split``
+only: each launch's time on the card and on the host apart).  Needs a CUDA
 device.  Min-sum, 8 iterations, early termination, 'd' input and 'sys'
 output, rate 1/3 QPSK at 1.0 dB (a mix of sweeps to convergence); a third
 table repeats the packing measurement at a 50-iteration budget at 1.0 and
@@ -24,6 +25,7 @@ from __future__ import annotations
 import functools
 import json
 import sys
+import time
 
 import torch
 
@@ -141,6 +143,57 @@ def packing_table(device, zs=PACKING_ZS, ps=PACKING_PS, ns=PACKING_NS,
     return rows
 
 
+def held_times_us(fn, reps: int, hold_cycles: int = 100_000_000) -> tuple:
+    """(device, host) microseconds per call of ``fn``: the stream is held by
+    a sleeping kernel (``hold_cycles`` clock cycles) while the host queues
+    ``reps`` calls, so the events
+    time the calls back to back on the card and the host's clock times
+    their queueing alone."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)  # about 50 ms at the H100's 1.98 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps, host_s * 1e6 / reps
+
+
+def launch_split(device, zs=(5, 8, 13, 20, 26, 32), ns=(256, 2048, 4096),
+                 message_dtypes=PACKING_DTYPES, trials: int = 3):
+    """One record per (Z, message type, n, trial): for one codeword per
+    block and the automatic choice, microseconds per call as
+    ``packing_table`` times them (``time_ms``: the host and the card
+    together), on the card alone and on the host alone (``held_times_us``).
+    The layered min-sum decode of ``packing_table``'s rows."""
+    rows = []
+    for Z in zs:
+        params = table_params(Z)
+        llr = noisy_llrs(params, max(ns), ESN0_DB, 100 + Z, device)
+        for dtype in message_dtypes:
+            kw = dict(DECODE_KW, message_dtype=dtype)
+            for n in ns:
+                x = llr[:n]
+                reps = max(3, min(30, 32768 // n))
+                auto = decoder_cuda.auto_codewords_per_block(params, n, "layered",
+                                                             kw["algorithm"], dtype)
+                for trial in range(trials):
+                    for P in sorted({1, auto}):
+                        fn = lambda: decoder_cuda.decode(params, x, codewords_per_block=P, **kw)
+                        call_us = time_ms(fn, reps) * 1e3
+                        device_us, host_us = held_times_us(fn, reps)
+                        rows.append({"bg": params.BG, "Z": Z, "message_dtype": dtype,
+                                     "n": n, "P": P, "auto": P == auto, "trial": trial,
+                                     "call_us": call_us, "device_us": device_us,
+                                     "host_us": host_us})
+    return rows
+
+
 def routing_table(device, zs=ROUTING_ZS, ns=ROUTING_NS,
                   schedules=decoder_cuda.SCHEDULES):
     """One record per (Z, schedule, n): milliseconds of the kernel with its
@@ -180,6 +233,10 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     card = card_name_and_power_limit()
+    if "split" in args:
+        for row in launch_split(device):
+            print(json.dumps({"table": "split", **row, "card": card}), flush=True)
+        return 0
     for row in packing_table(device):
         print(json.dumps({"table": "packing", **row, "card": card}), flush=True)
     # a sweep's conditions: the reference's 50-iteration budget, below and
